@@ -1,0 +1,73 @@
+"""Glue between the Splendor env, the network and the batched MCTS.
+
+Every function here works on a batch: states ``[B, R, 7]`` int8, actions
+``[B]``."""
+
+from __future__ import annotations
+
+import torch
+
+from ...models import splendor_net as N
+from . import env as E
+
+
+def net_config_for(cfg: E.SplendorConfig, dropout: float = 0.3,
+                   nn_version: int = 1, width: int = 128,
+                   dtype: str = "float32") -> N.NetConfig:
+    return N.NetConfig(
+        nb_vect=cfg.rows,
+        vect_dim=7,
+        action_size=cfg.num_actions,
+        num_players=cfg.num_players,
+        max_score_diff=15,
+        dropout=dropout,
+        nn_version=nn_version,
+        width=width,
+        dtype=dtype,
+    )
+
+
+def make_eval_fn(net_cfg: N.NetConfig):
+    """eval_fn(net, states_f32, valids) -> (probs, values); ``net`` is the
+    ``SplendorNet`` that evaluates the leaves, and it must have been built
+    from ``net_cfg``."""
+    def eval_fn(net, states, valids):
+        if net.cfg != net_cfg:
+            raise ValueError(f"the net was built from {net.cfg}, the "
+                             f"evaluator from {net_cfg}")
+        probs, v, _ = N.apply_inference(net, states, valids)
+        return probs, v
+    return eval_fn
+
+
+def make_uniform_eval_fn(cfg: E.SplendorConfig):
+    """Prior-free evaluator: uniform over valid moves, zero value."""
+    def eval_fn(bundle, states, valids):
+        del bundle
+        probs = valids.to(torch.float32)
+        probs = probs / probs.sum(-1, keepdim=True).clamp(min=1e-8)
+        return probs, torch.zeros((states.shape[0], cfg.num_players),
+                                  dtype=torch.float32, device=states.device)
+    return eval_fn
+
+
+def make_search_step_fn(cfg: E.SplendorConfig):
+    """In-tree transition on a batch: deterministic step (chance collapsed)
+    from the canonical frame, re-canonicalize for the next seat, then the
+    terminal vector and validity.  The 4th output is each edge's seat
+    advance: 1, or 0 on a pending noble-select ply that keeps the turn."""
+    def step_fn(states, actions):
+        zeros = torch.zeros((states.shape[0], 2), dtype=torch.float32,
+                            device=states.device)
+        s2, nxt = E.step(cfg, states, actions, 0, zeros, True)
+        # without the noble ply every edge advances exactly one seat
+        s2 = E.swap_players(cfg, s2, nxt if cfg.enable_noble_select else 1)
+        return (s2, E.check_end_game(cfg, s2), E.valid_moves(cfg, s2, 0),
+                nxt)
+    return step_fn
+
+
+def make_valid_fn(cfg: E.SplendorConfig):
+    def valid_fn(states):
+        return E.valid_moves(cfg, states, 0)
+    return valid_fn

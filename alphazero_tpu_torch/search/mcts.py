@@ -1,0 +1,337 @@
+"""Batched array MCTS in PyTorch: the fresh-tree search.
+
+Port of ``build_search`` of ``alphazero_tpu/search/mcts.py``.  The tree of
+each board lives in fixed-shape tensors with the JAX search's packed
+layout: ``stats [B, M, 4, A+2]`` float32, whose action columns ``0..A-1``
+hold the edge lanes (prior or -1 where invalid, sign-packed child pointer,
+edge visits, edge value sum) and whose columns ``A`` and ``A+1`` hold the
+node scalars (terminal flag, seat rotation, visit count, value sum; the
+terminal value vector).  Each simulation:
+
+1. descends every board from its root with PUCT (plain PyTorch here);
+2. steps the chosen edge with the env and evaluates the leaf;
+3. backs the value up the recorded path, installs the child pointer and
+   writes the expanded node's row: one launch of the fused-backup kernel
+   (``ops/fused_backup.py``) on every simulation.
+
+The three steps run inside ``torch.profiler.record_function`` spans
+(``mcts.descent``, ``mcts.env_step``, ``mcts.evaluate``, ``mcts.backup``),
+which a profiler run reads to split the search's time.
+
+Results equal the JAX search's: the PUCT score keeps its float32
+association, ties go to the lowest index, forced playouts read the global
+sim index and policy-target pruning the total sims.  The JAX search may
+split its sim loop into stages of growing capacity (``stage_sims``); staged
+and unstaged searches return equal results, so the port validates the
+schedule and runs one stage at full capacity.  Stats are float32 always,
+which is what ``stats_dtype="auto"`` resolves to off the TPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple
+
+import torch
+from torch.profiler import record_function
+
+from ..ops.fused_backup import packed_backup
+from ..utils.device import resolve_device
+
+EPS = 1e-8
+
+# stats lanes; node-scalar columns A (flag/rotation/Ns/value) and A+1
+_PVALID = 0   # prior where valid, -1 where invalid | node: terminal flag
+_CHILD = 1    # +child id, -id if the child is terminal, 0 = unexpanded |
+              # node: seat rotation from the root
+_EN = 2       # edge visits | node: visit count Ns
+_EW = 3       # edge value sum | node: value sum
+
+# the descent checks for "every board stopped" (a host sync) only this often
+_STOP_CHECK_LEVELS = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class MCTSConfig:
+    """The JAX search's configuration, field for field.  ``descent_unroll``
+    and ``pallas_backup`` change how the JAX search runs, not what it
+    returns: the port's descent has no unroll and its backup is always the
+    kernel."""
+    num_sims: int = 100
+    cpuct: float = 1.0
+    fpu: float = 0.0                  # >0: parent-Q reduction; <=0: absolute
+    forced_playouts: bool = False
+    k_forced: float = 0.5
+    dirichlet_alpha: float = 0.2
+    dirichlet_frac: float = 0.25
+    prior_temp: float = 1.0
+    add_noise: bool = False
+    max_depth: int = 0                # 0: no cap beyond the tree's capacity
+    descent_unroll: int = 1
+    pallas_backup: bool = False
+    stats_dtype: str = "auto"         # "auto" | "float32"
+    stage_sims: str = "auto"
+
+
+class SearchResult(NamedTuple):
+    counts: torch.Tensor      # [B, A] f32 — visit counts, pruned if forced
+    raw_counts: torch.Tensor  # [B, A] i32
+    q: torch.Tensor           # [B, P] f32 — root Q per seat
+    root_value: torch.Tensor  # [B, P] f32 — NN value at the root
+    root_prior: torch.Tensor  # [B, A] f32
+
+
+# eval_fn(params, states_f32 [B,R,7], valids [B,A]) -> (probs, values [B,P])
+EvalFn = Callable[..., tuple[torch.Tensor, torch.Tensor]]
+# step_fn(states [B,R,7], actions [B]) ->
+#   (canonical child states, term_vec [B,P], valid [B,A], seat advance [B])
+StepFn = Callable[..., tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]]
+
+
+def _resolve_stage_schedule(cfg: MCTSConfig):
+    """Parse ``cfg.stage_sims`` like the JAX search (same errors); the port
+    runs every schedule as one stage, which gives the same results."""
+    spec = str(cfg.stage_sims or "off").strip().lower()
+    if spec == "off":
+        return None
+    if spec == "auto":
+        S = cfg.num_sims
+        if S < 64:
+            return None
+        sched, done, step = [], 0, 16
+        while done + step < S:
+            sched.append(step)
+            done += step
+            if len(sched) >= 2:
+                step *= 2
+        sched.append(S - done)
+        return tuple(sched)
+    parts = tuple(int(x) for x in spec.split(","))
+    if any(p <= 0 for p in parts) or sum(parts) != cfg.num_sims:
+        raise ValueError(
+            f"stage_sims={spec!r}: entries must be positive and sum to "
+            f"num_sims={cfg.num_sims}")
+    return parts if len(parts) > 1 else None
+
+
+def _normalize_masked(p, valid):
+    p = torch.where(valid, p, 0.0)
+    return p / p.sum(-1, keepdim=True).clamp(min=EPS)
+
+
+def _ucb_pick_rows(cfg: MCTSConfig, prior_r, valid_r, en_r, ew_r, ns, qs,
+                   sim_idx: int, is_root):
+    """PUCT over per-node rows [B, A], in the JAX search's float32 order."""
+    A = prior_r.shape[-1]
+    visited = en_r > 0
+    q_a = ew_r / en_r.clamp(min=1.0)
+    fpu_init = (qs - cfg.fpu if cfg.fpu > 0
+                else torch.full_like(qs, cfg.fpu))[:, None]
+    ns_f = ns[:, None]
+    cp = cfg.cpuct * prior_r
+    u = torch.where(visited,
+                    q_a + cp * torch.sqrt(ns_f) / (1.0 + en_r),
+                    fpu_init + cp * torch.sqrt(ns_f + EPS))
+    u = torch.where(valid_r, u, -torch.inf)
+    best = torch.argmax(u, -1)                      # first maximum
+
+    if cfg.forced_playouts:
+        thresh = torch.floor(torch.sqrt(cfg.k_forced * prior_r
+                                        * float(sim_idx)))
+        force = valid_r & (en_r < thresh) & is_root[:, None]
+        idx = torch.arange(A, device=prior_r.device)[None, :]
+        first_forced = torch.where(force, idx, A).min(-1).values
+        best = torch.where(force.any(-1), first_forced, best)
+    return best
+
+
+def _select(cfg: MCTSConfig, stats, sim_idx: int, depth_cap: int,
+            levels: int):
+    """Batched descent with path recording.
+
+    Returns ``(parent, action, existing, depth, parent_rot, path_p, path_a,
+    path_r)`` exactly as the JAX ``_select`` does.  The JAX loop runs every
+    board in lockstep until all have stopped; a stopped board records only
+    drop sentinels, which are also the buffers' initial values, so running
+    fewer levels gives the same outputs as long as every board stops.
+    ``levels`` is that bound: a fresh tree after ``i`` sims has ``i + 1``
+    nodes and a path never revisits one, so ``min(i + 1, depth_cap)`` levels
+    suffice; boards that stop earlier are masked, and the loop ends early
+    when all have stopped (checked every few levels)."""
+    B, M, _, A2 = stats.shape
+    A = A2 - 2
+    dev = stats.device
+    ar = torch.arange(B, device=dev)
+    path_p = torch.full((B, depth_cap), M, dtype=torch.int32, device=dev)
+    path_a = torch.zeros((B, depth_cap), dtype=torch.int32, device=dev)
+    path_r = torch.zeros((B, depth_cap), dtype=torch.int32, device=dev)
+    zeros = torch.zeros(B, dtype=torch.long, device=dev)
+    node, parent, action, existing, prot = (zeros.clone() for _ in range(5))
+    depth = torch.zeros(B, dtype=torch.int32, device=dev)
+    stop = torch.zeros(B, dtype=torch.bool, device=dev)
+
+    for level in range(levels):
+        if level and level % _STOP_CHECK_LEVELS == 0 and bool(stop.all()):
+            break
+        row = stats[ar, node]                                 # [B, 4, A+2]
+        pv = row[:, _PVALID, :A]
+        nn_ = row[:, _EN, A]
+        rot = row[:, _CHILD, A].long()
+        qs = row[:, _EW, A] / (nn_ + 1.0)
+        a = _ucb_pick_rows(cfg, pv.clamp(min=0.0), pv >= 0.0, row[:, _EN, :A],
+                           row[:, _EW, :A], nn_, qs, sim_idx, node == 0)
+        # the sign-packed pointer gives the child and its terminal flag
+        child_raw = row[:, _CHILD, :A].gather(1, a[:, None])[:, 0]
+        child = child_raw.abs().long()
+        now_stop = (child == 0) | (child_raw < 0.0) | (level >= depth_cap - 1)
+
+        path_p[:, level] = torch.where(stop, M, node)
+        path_a[:, level] = torch.where(stop, 0, a)
+        path_r[:, level] = torch.where(stop, 0, rot)
+        depth += (~stop).to(torch.int32)
+        parent = torch.where(stop, parent, node)
+        action = torch.where(stop, action, a)
+        existing = torch.where(stop, existing, child)
+        prot = torch.where(stop, prot, rot)
+        node = torch.where(stop | now_stop, node, child)
+        stop = stop | now_stop
+    return parent, action, existing, depth, prot, path_p, path_a, path_r
+
+
+def _backprop_packed(stats, path_p, path_a, path_r, depth, value_vec,
+                     leaf_rot, parent, action, fresh, slot: int, pvalid_new,
+                     child_term, child_rot, leaf_init_v, term_vec):
+    """Whole-path backup and node expansion of one simulation, in place:
+    the JAX ``_backprop_fused`` as one fused-backup kernel launch.
+
+    Level ``l`` holds edge ``(path_p[l], path_a[l])``; the edge and the
+    node's column ``A`` receive one visit and ``value_vec[(path_r[l] -
+    leaf_rot) % P]`` (``value_vec`` is in the leaf's frame, so each
+    ancestor reads the lane of its own mover seat).  A fresh edge gets the
+    child pointer ``+slot``, or ``-slot`` when the child is terminal.  Row
+    ``slot`` receives the expanded node's content: priors stored as ``-1 +
+    (p + 1)`` over the -1 initialization (the same arithmetic as the JAX
+    update, so the stored bits agree), the terminal flag, the rotation,
+    the leaf's value and the terminal value vector."""
+    B, _, _, A2 = stats.shape
+    A, P = A2 - 2, value_vec.shape[1]
+    mask = torch.arange(path_p.shape[1], device=stats.device)[None, :] \
+        < depth[:, None]
+    v_l = value_vec.gather(1, (path_r.long() - leaf_rot[:, None]) % P)
+    w = torch.stack([mask.to(torch.float32), torch.where(mask, v_l, 0.0)], -1)
+    child_v = (torch.where(fresh, float(slot), 0.0)
+               * torch.where(child_term, -1.0, 1.0))
+    row = torch.zeros((B, 4, A2), dtype=torch.float32, device=stats.device)
+    row[:, _PVALID, :A] = pvalid_new + 1.0
+    row[:, _PVALID, A] = child_term.to(torch.float32)
+    row[:, _CHILD, A] = child_rot.to(torch.float32)
+    row[:, _EW, A] = leaf_init_v
+    row[:, :P, A + 1] = term_vec
+    return packed_backup(stats, path_p.contiguous(), path_a.contiguous(),
+                         w.contiguous(), parent.to(torch.int32),
+                         action.to(torch.int32), child_v, row, slot)
+
+
+def build_search(mcts_cfg: MCTSConfig, num_players: int, eval_fn: EvalFn,
+                 step_fn: StepFn, valid_fn, device="cuda"):
+    """Returns ``search(params, roots [B,R,7] int8, generator=None,
+    noise_gamma=None) -> SearchResult`` — a fresh tree per call.
+
+    ``eval_fn(params, states, valids)`` returns normalized masked policy
+    probabilities and per-seat values in the state's own frame.  With
+    ``add_noise``, ``noise_gamma [B, A]`` replaces the Gamma(alpha) draws
+    of the Dirichlet noise (the JAX search draws them with
+    ``jax.random.gamma``); without it they come from ``generator``."""
+    dev = resolve_device(device)
+    cfg = mcts_cfg
+    _resolve_stage_schedule(cfg)
+    if cfg.stats_dtype not in ("auto", "float32"):
+        raise ValueError(f"stats_dtype={cfg.stats_dtype!r}: the port stores "
+                         f"search stats in float32 ('auto' or 'float32')")
+    S = cfg.num_sims
+    M = S + 1
+    P = num_players
+    PL = min(M - 1, cfg.max_depth) if cfg.max_depth > 0 else M - 1
+
+    def search(params, roots, generator=None, noise_gamma=None):
+        roots = roots.to(dev)
+        B, R, C = roots.shape
+        ar = torch.arange(B, device=dev)
+        root_valid = valid_fn(roots)                              # [B, A]
+        A = root_valid.shape[1]
+        pi0, v0 = eval_fn(params, roots.to(torch.float32), root_valid)
+        pi0 = _normalize_masked(pi0, root_valid)
+        if cfg.add_noise:
+            if cfg.prior_temp != 1.0:
+                pi0 = _normalize_masked(pi0 ** (1.0 / cfg.prior_temp),
+                                        root_valid)
+            if noise_gamma is None:
+                alpha = torch.full((B, A), cfg.dirichlet_alpha,
+                                   dtype=torch.float32, device=dev)
+                noise_gamma = torch._standard_gamma(alpha, generator=generator)
+            noise = _normalize_masked(noise_gamma.to(dev), root_valid)
+            pi0 = _normalize_masked((1.0 - cfg.dirichlet_frac) * pi0
+                                    + cfg.dirichlet_frac * noise, root_valid)
+
+        stats = torch.zeros((B, M, 4, A + 2), dtype=torch.float32, device=dev)
+        stats[:, :, _PVALID, :A] = -1.0
+        stats[:, 0, _PVALID, :A] = torch.where(root_valid, pi0, -1.0)
+        stats[:, 0, _EW, A] = v0[:, 0]
+        states = torch.zeros((B, M, R, C), dtype=torch.int8, device=dev)
+        states[:, 0] = roots
+
+        for i in range(S):
+            with record_function("mcts.descent"):
+                (parent, action, existing, depth, parent_rot, path_p, path_a,
+                 path_r) = _select(cfg, stats, i, PL, min(i + 1, PL))
+            fresh = existing == 0
+            slot = 1 + i                    # the node this sim expands
+
+            with record_function("mcts.env_step"):
+                child_state, term_vec, child_valid, adv = step_fn(
+                    states[ar, parent], action)
+            child_rot = (parent_rot + adv) % P
+            with record_function("mcts.evaluate"):
+                probs, values = eval_fn(params, child_state.to(torch.float32),
+                                        child_valid)
+                probs = _normalize_masked(probs, child_valid)
+            child_term = term_vec.abs().sum(-1) > 0
+            states[:, slot] = child_state
+
+            with record_function("mcts.backup"):
+                # leaf frame: a revisited leaf's scalars come from its row
+                leaf = stats[ar, existing, :, A:]                 # [B, 4, 2]
+                leaf_term = torch.where(fresh, child_term,
+                                        leaf[:, _PVALID, 0] > 0)
+                leaf_rot = torch.where(fresh, child_rot,
+                                       leaf[:, _CHILD, 0].long())
+                leaf_tv = torch.where(fresh[:, None], term_vec,
+                                      leaf[:, :P, 1])
+                value_vec = torch.where(leaf_term[:, None], leaf_tv, values)
+                _backprop_packed(stats, path_p, path_a, path_r, depth,
+                                 value_vec, leaf_rot, parent, action, fresh,
+                                 slot, torch.where(child_valid, probs, -1.0),
+                                 child_term, child_rot, values[:, 0],
+                                 term_vec)
+
+        counts = stats[:, 0, _EN, :A].to(torch.int32)
+        root_prior = stats[:, 0, _PVALID, :A].clamp(min=0.0)
+        qs = stats[:, 0, _EW, A] / (stats[:, 0, _EN, A] + 1.0)
+        q = torch.cat([qs[:, None],
+                       (-qs / (P - 1))[:, None].expand(B, P - 1)], 1)
+        out_counts = counts.to(torch.float32)
+        if cfg.forced_playouts:
+            # policy target pruning over the whole search budget
+            best = counts.max(1, keepdim=True).values
+            pruned = counts - torch.floor(torch.sqrt(
+                cfg.k_forced * root_prior * S)).to(torch.int32)
+            adj = torch.where(counts == best, counts, pruned)
+            out_counts = torch.where(adj > 1, adj, 0).to(torch.float32)
+            total = out_counts.sum(-1, keepdim=True)
+            out_counts = torch.where(total > 0, out_counts,
+                                     counts.to(torch.float32))
+        return SearchResult(counts=out_counts, raw_counts=counts, q=q,
+                            root_value=v0, root_prior=root_prior)
+
+    return search

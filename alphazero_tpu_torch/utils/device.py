@@ -1,0 +1,17 @@
+"""Device resolution shared by the port's entry points."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """The device an entry point runs on.  The default is the GPU, and a
+    request for it raises when there is none: the port never moves to the
+    CPU unless the caller asks for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run on the CPU")
+    return dev

@@ -1,0 +1,94 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points run on the GPU unless the caller asks for the CPU."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+MODULES = [
+    "alphazero_tpu_torch",
+    "alphazero_tpu_torch.games.splendor.tables",
+    "alphazero_tpu_torch.games.splendor.env",
+    "alphazero_tpu_torch.games.splendor.adapter",
+    "alphazero_tpu_torch.models.splendor_net",
+    "alphazero_tpu_torch.ops._build",
+    "alphazero_tpu_torch.ops.fused_backup",
+    "alphazero_tpu_torch.search.mcts",
+    "alphazero_tpu_torch.train.replay",
+    "alphazero_tpu_torch.train.selfplay",
+    "alphazero_tpu_torch.utils.checkpoint",
+    "alphazero_tpu_torch.utils.device",
+    "chip_smoke",
+]
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from alphazero_tpu_torch.utils import checkpoint as C\n"
+        "C.load_checkpoint('runs/r6', 'best.pt')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'alphazero_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('isolated')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "isolated" in out.stdout
+
+
+def test_port_sources_name_no_jax():
+    """No source file of the port imports JAX or the JAX package."""
+    pkg = os.path.join(ROOT, "alphazero_tpu_torch")
+    files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
+             if f.endswith(".py")]
+    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    for path in files:
+        for line in open(path):
+            s = line.strip()
+            if s.startswith(("import ", "from ")):
+                mod = s.split()[1].split(".")[0]
+                assert mod not in ("jax", "jaxlib", "flax", "optax",
+                                   "alphazero_tpu"), (path, s)
+
+
+def test_entry_points_default_to_cuda():
+    from alphazero_tpu_torch.games.splendor import adapter as A
+    from alphazero_tpu_torch.games.splendor import env as E
+    from alphazero_tpu_torch.models import splendor_net as N
+    from alphazero_tpu_torch.search import mcts as M
+    from alphazero_tpu_torch.train import selfplay as SP
+    if torch.cuda.is_available():
+        pytest.skip("this check is about machines without a CUDA device")
+    cfg = E.SplendorConfig()
+    calls = [
+        lambda: E.initial_state(cfg, 2),
+        lambda: N.build_net(A.net_config_for(cfg)),
+        lambda: M.build_search(M.MCTSConfig(num_sims=4), 2,
+                               A.make_uniform_eval_fn(cfg),
+                               A.make_search_step_fn(cfg),
+                               A.make_valid_fn(cfg)),
+        lambda: SP.SelfPlayEngine(cfg, A.make_uniform_eval_fn(cfg),
+                                  SP.SelfPlayConfig(batch_size=2,
+                                                    num_sims=4)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+
+
+def test_chip_smoke_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this check is about machines without a CUDA device")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
