@@ -12,7 +12,8 @@ terminal value vector).  Each simulation:
 2. steps the chosen edge with the env and evaluates the leaf;
 3. backs the value up the recorded path, installs the child pointer and
    writes the expanded node's row: one launch of the fused-backup kernel
-   (``ops/fused_backup.py``) on every simulation.
+   (``ops/fused_backup.py::backprop_packed``) on every simulation, which
+   takes the raw outputs of steps 1 and 2.
 
 The three steps run inside ``torch.profiler.record_function`` spans
 (``mcts.descent``, ``mcts.env_step``, ``mcts.evaluate``, ``mcts.backup``),
@@ -35,7 +36,7 @@ from typing import Callable, NamedTuple
 import torch
 from torch.profiler import record_function
 
-from ..ops.fused_backup import packed_backup
+from ..ops.fused_backup import backprop_packed
 from ..utils.device import resolve_device
 
 EPS = 1e-8
@@ -199,40 +200,6 @@ def _select(cfg: MCTSConfig, stats, sim_idx: int, depth_cap: int,
     return parent, action, existing, depth, prot, path_p, path_a, path_r
 
 
-def _backprop_packed(stats, path_p, path_a, path_r, depth, value_vec,
-                     leaf_rot, parent, action, fresh, slot: int, pvalid_new,
-                     child_term, child_rot, leaf_init_v, term_vec):
-    """Whole-path backup and node expansion of one simulation, in place:
-    the JAX ``_backprop_fused`` as one fused-backup kernel launch.
-
-    Level ``l`` holds edge ``(path_p[l], path_a[l])``; the edge and the
-    node's column ``A`` receive one visit and ``value_vec[(path_r[l] -
-    leaf_rot) % P]`` (``value_vec`` is in the leaf's frame, so each
-    ancestor reads the lane of its own mover seat).  A fresh edge gets the
-    child pointer ``+slot``, or ``-slot`` when the child is terminal.  Row
-    ``slot`` receives the expanded node's content: priors stored as ``-1 +
-    (p + 1)`` over the -1 initialization (the same arithmetic as the JAX
-    update, so the stored bits agree), the terminal flag, the rotation,
-    the leaf's value and the terminal value vector."""
-    B, _, _, A2 = stats.shape
-    A, P = A2 - 2, value_vec.shape[1]
-    mask = torch.arange(path_p.shape[1], device=stats.device)[None, :] \
-        < depth[:, None]
-    v_l = value_vec.gather(1, (path_r.long() - leaf_rot[:, None]) % P)
-    w = torch.stack([mask.to(torch.float32), torch.where(mask, v_l, 0.0)], -1)
-    child_v = (torch.where(fresh, float(slot), 0.0)
-               * torch.where(child_term, -1.0, 1.0))
-    row = torch.zeros((B, 4, A2), dtype=torch.float32, device=stats.device)
-    row[:, _PVALID, :A] = pvalid_new + 1.0
-    row[:, _PVALID, A] = child_term.to(torch.float32)
-    row[:, _CHILD, A] = child_rot.to(torch.float32)
-    row[:, _EW, A] = leaf_init_v
-    row[:, :P, A + 1] = term_vec
-    return packed_backup(stats, path_p.contiguous(), path_a.contiguous(),
-                         w.contiguous(), parent.to(torch.int32),
-                         action.to(torch.int32), child_v, row, slot)
-
-
 def build_search(mcts_cfg: MCTSConfig, num_players: int, eval_fn: EvalFn,
                  step_fn: StepFn, valid_fn, device="cuda"):
     """Returns ``search(params, roots [B,R,7] int8, generator=None,
@@ -309,11 +276,11 @@ def build_search(mcts_cfg: MCTSConfig, num_players: int, eval_fn: EvalFn,
                 leaf_tv = torch.where(fresh[:, None], term_vec,
                                       leaf[:, :P, 1])
                 value_vec = torch.where(leaf_term[:, None], leaf_tv, values)
-                _backprop_packed(stats, path_p, path_a, path_r, depth,
-                                 value_vec, leaf_rot, parent, action, fresh,
-                                 slot, torch.where(child_valid, probs, -1.0),
-                                 child_term, child_rot, values[:, 0],
-                                 term_vec)
+                backprop_packed(stats, path_p, path_a, path_r, depth,
+                                value_vec, leaf_rot, parent, action, fresh,
+                                slot, torch.where(child_valid, probs, -1.0),
+                                child_term, child_rot, values[:, 0],
+                                term_vec)
 
         counts = stats[:, 0, _EN, :A].to(torch.int32)
         root_prior = stats[:, 0, _PVALID, :A].clamp(min=0.0)

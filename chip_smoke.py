@@ -5,11 +5,16 @@
 
 Phases (each raises on failure):
 1. print the card's name and power limit, build the CUDA kernels;
-2. hold every kernel against its plain PyTorch version on the card, on the
-   operands a main-path search gives it, and time both on the device;
+2. hold every kernel against its plain PyTorch version on the card: the
+   backup's entry and its operand contract on the arguments of every
+   simulation of a main-path search and of searches at self-play's two
+   shapes, and on made-up repeats and collisions, the split contract on
+   made-up paths; time each on the device beside its bound and its library
+   call, and the backup's host cost with and without operand building;
 3. search: B=1024 boards, 64 sims, root noise on, with the v1 width-128
    net of ``runs/r6/best.pt``; asserts the visit counts and that the
-   backup kernel ran once per simulation;
+   backup kernel ran once per simulation; then one profiled search with
+   the backup's operands built by PyTorch ops, for the host's share;
 4. self-play: the actor at B=256, 128 sims, playout-cap randomization and
    forced playouts, 12 moves;
 5. the same small search on the CPU (plain versions) and on the card, as
@@ -42,32 +47,46 @@ def _sync():
 
 def _device_ms(fn, name=None, reps=5, warmup=2, per_call=1):
     """Device time per unit of work from the profiler's kernel durations:
-    each of ``reps`` profiled calls of ``fn`` does ``per_call`` units, and
-    its kernels' durations are summed; the median of those sums is divided
-    by ``per_call``.  With ``name`` only the kernels whose name contains it
-    count, and there must be one per unit.  CUDA events around the calls
-    would also count the gaps in which the device waits for the host to
-    launch the next kernel."""
+    each of ``reps`` profiled calls of ``fn`` does ``per_call`` units; the
+    result is the median over the calls.  Without ``name`` a call's time is
+    the sum of all its kernels' durations over ``per_call``.  With ``name``
+    only the kernels whose name contains it count, one per unit, and a
+    call's time is their mean duration: the profiler loses a kernel's
+    record now and then (where it switches activity buffers), so up to a
+    tenth may be missing, and a call that lost more is profiled again,
+    eight times at most (a call of one launch can lose its only record
+    several times in a row, so give ``fn`` a few).  What no record is needed for is held exactly:
+    every profiled call must raise the wrapper's launch count by
+    ``per_call``.  CUDA events around the calls would also count the gaps
+    in which the device waits for the host to launch the next kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from alphazero_tpu_torch.ops import fused_backup as FB
     for _ in range(warmup):
         fn()
-    _sync()
-    sums = []
+    per_unit = []
     for _ in range(reps):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
+        for _attempt in range(8):
             _sync()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == DeviceType.CUDA
-              and (name is None or name in e.name)]
-        if not us:
-            raise AssertionError(f"the profiler saw no kernel {name!r}")
-        if name is not None and len(us) != per_call:
-            raise AssertionError(f"{len(us)} {name} kernels for {per_call} "
-                                 f"units")
-        sums.append(sum(us))
-    return statistics.median(sums) / per_call / 1e3
+            before = FB.fused_backup.launches
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                _sync()
+            launched = FB.fused_backup.launches - before
+            if name is not None and launched != per_call:
+                raise AssertionError(f"{launched} {name!r} launches counted "
+                                     f"for {per_call} units")
+            us = [e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and (name is None or name in e.name)]
+            if us and (name is None
+                       or 0.9 * per_call <= len(us) <= per_call):
+                break
+        else:
+            raise AssertionError(f"the profiler saw {len(us)} {name!r} "
+                                 f"kernels for {per_call} units")
+        per_unit.append(sum(us) / (per_call if name is None else len(us)))
+    return statistics.median(per_unit) / 1e3
 
 
 def _time_host_ms(fn, reps=5):
@@ -115,6 +134,37 @@ def _split_inputs(B, M, A, S1, g, dev):
             child_a.int(), child_v, pv, slot)
 
 
+def _made_up_entry_args(B, M, A, S1, P, g, dev, slot):
+    """Arguments of ``backprop_packed`` that a tree never gives: random
+    paths up to ``S1`` levels deep whose nodes repeat at other actions, live
+    levels at the slot's node, and child pointers into the slot's row."""
+    import torch
+
+    def ri(lo, hi, *shape, dtype=torch.int64):
+        return torch.randint(lo, hi, shape, generator=g, device=dev).to(dtype)
+    stats = torch.randn((B, M, 4, A + 2), generator=g, device=dev)
+    if slot == "per_board":
+        slot = ri(1, M, B, dtype=torch.int32)
+        slots = slot.long()
+    else:
+        slots = torch.full((B,), slot, device=dev)
+    path_p = ri(0, M + 1, B, S1, dtype=torch.int32)
+    path_p[:, 1::3] = path_p[:, 0:S1 - 1:3]            # repeats of p
+    path_p[::2, 2] = slots[::2].int()                  # a live p == slot
+    path_p[::4, S1 - 1] = slots[::4].int()             # ... in the last chunk
+    depth = ri(0, S1 + 1, B, dtype=torch.int32)
+    depth[::4] = S1
+    parent = ri(0, M, B)
+    parent[::3] = slots[::3]                           # child into the row
+    return (stats, path_p, ri(0, A, B, S1, dtype=torch.int32),
+            ri(0, P, B, S1, dtype=torch.int32), depth,
+            torch.randn((B, P), generator=g, device=dev), ri(0, P, B),
+            parent, ri(0, A, B), ri(0, 2, B).bool(), slot,
+            torch.rand((B, A), generator=g, device=dev), ri(0, 2, B).bool(),
+            ri(0, P, B), torch.randn((B, P), generator=g, device=dev)[:, 0],
+            torch.randn((B, P), generator=g, device=dev))
+
+
 def _main_search(device="cuda", B=1024, S=64):
     """The main path's search: B boards, S sims, root noise on, the r6 net;
     returns ``(env config, net, search, roots, generator)``."""
@@ -134,72 +184,171 @@ def _main_search(device="cuda", B=1024, S=64):
     return cfg, net, search, roots, g
 
 
-def _search_backup_operands(**kw):
-    """The packed backup's operands of every simulation of one main-path
+def _search_backup_args(**kw):
+    """``backprop_packed``'s arguments in every simulation of one main-path
     search, in order, and the stats array as the last simulation found
     it."""
     import torch
     from alphazero_tpu_torch.search import mcts as M
     _, net, search, roots, g = _main_search(**kw)
-    real, ops, base = M.packed_backup, [], []
+    real, raws, base = M.backprop_packed, [], []
 
     def record(stats, *args):
-        ops.append(tuple(a.clone() if torch.is_tensor(a) else a
-                         for a in args))
+        raws.append(tuple(a.clone() if torch.is_tensor(a) else a
+                          for a in args))
         base[:] = [stats.clone()]
         return real(stats, *args)
 
-    M.packed_backup = record
+    M.backprop_packed = record
     try:
         search(net, roots, generator=g)
     finally:
-        M.packed_backup = real
+        M.backprop_packed = real
     _sync()
-    return base[0], ops
+    return base[0], raws
 
 
-def _packed_flat(stats, path_p, path_a, w, child_p, child_a, child_v, row,
-                 slot):
-    """Flat indices and values of every element the packed update adds to
-    (for the library yardstick and the byte count)."""
+def _operand_backprop(stats, *args):
+    """``backprop_packed`` as it ran before the kernel built its own
+    operands: some 25 PyTorch launches, then the operand contract."""
+    from alphazero_tpu_torch.ops import fused_backup as FB
+    return FB.packed_backup(stats, *FB.packed_operands(stats, *args))
+
+
+def _touched(stats, path_p, path_a, w, child_p, child_a, child_v, row, slot,
+             node_col=None, live=None, row_elems=None):
+    """Flat indices and values of every element an update adds to (for the
+    library yardstick and the byte count): the live levels' edge elements
+    and, with ``node_col``, node elements, the installed child pointers, and
+    the row, of which ``row_elems`` (offsets into the node's four lanes)
+    selects a part."""
     import torch
     B, M, _, C = stats.shape
-    A = C - 2
     dev = stats.device
-    b = torch.arange(B, device=dev)[:, None].expand_as(path_p)
-    keep = path_p < M
+    ar = torch.arange(B, device=dev)
+    b = ar[:, None].expand_as(path_p)
+    keep = (path_p >= 0) & (path_p < M) if live is None else live
     bb, pp, aa = b[keep].long(), path_p[keep].long(), path_a[keep].long()
     base = (bb * M + pp) * 4
-    idx = [(base + 2) * C + aa, (base + 3) * C + aa,
-           (base + 2) * C + A, (base + 3) * C + A]
-    val = [w[..., 0][keep], w[..., 1][keep]] * 2
+    idx = [(base + 2) * C + aa, (base + 3) * C + aa]
+    val = [w[..., 0][keep], w[..., 1][keep]]
+    if node_col is not None:
+        idx += [(base + 2) * C + node_col, (base + 3) * C + node_col]
+        val += val
     inst = child_v != 0
-    bi = torch.arange(B, device=dev)[inst]
-    idx.append(((bi * M + child_p[inst].long()) * 4 + 1) * C
+    idx.append(((ar[inst] * M + child_p[inst].long()) * 4 + 1) * C
                + child_a[inst].long())
     val.append(child_v[inst])
-    r0 = (torch.arange(B, device=dev) * M + slot) * 4 * C
-    idx.append((r0[:, None] + torch.arange(4 * C, device=dev)[None]).reshape(-1))
-    val.append(row.reshape(-1))
-    return torch.cat(idx), torch.cat(val)
+    row = row.reshape(B, -1)
+    if row_elems is None:
+        row_elems = torch.arange(row.shape[1], device=dev)
+    r0 = (ar * M + slot) * 4 * C
+    idx.append((r0[:, None] + row_elems[None]).reshape(-1))
+    val.append(row[:, row_elems].reshape(-1))
+    return torch.cat(idx), torch.cat(val), int(keep.sum()), int(inst.sum())
 
 
-def _packed_work(stats, path_p, path_a, w, child_p, child_a, child_v, row,
-                 slot):
-    """``(bytes, adds)`` that one packed update needs at least: path_p,
-    child_v, the row and the per-board slot read in full, path_a and w only
-    at live levels, child_p and child_a only where a child is installed,
-    and every stats element it adds to read and written once."""
+def _bound(nbytes, adds):
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, adds / FP32_OPS_PER_S
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def _operand_work(stats, *ops, node_col=None):
+    """``(bytes, adds)`` that one update of the operand contracts needs at
+    least: path_p, child_v, the row and the per-board slot read in full,
+    path_a and w only at live levels, child_p and child_a only where a
+    child is installed, and every stats element it adds to read and written
+    once."""
     import torch
-    M, B = stats.shape[1], path_p.shape[0]
-    live = int(((path_p >= 0) & (path_p < M)).sum())
-    inst = int((child_v != 0).sum())
-    idx, _ = _packed_flat(stats, path_p, path_a, w, child_p, child_a,
-                          child_v, row, slot)
+    path_p, child_v, row = ops[0], ops[5], ops[6]
+    idx, _, live, inst = _touched(stats, *ops, node_col=node_col)
     nbytes = (path_p.numel() * 4 + live * (4 + 8) + child_v.numel() * 4
-              + inst * (4 + 4) + row.numel() * 4 + B * 4
+              + inst * (4 + 4) + row.numel() * 4 + path_p.shape[0] * 4
               + torch.unique(idx).numel() * 8)
     return nbytes, idx.numel()
+
+
+def _entry_touched(stats, *raw):
+    """``_touched`` for ``backprop_packed``: the PVALID lane of the slot's
+    row and its node scalars, not the lanes that receive zeros."""
+    import torch
+    from alphazero_tpu_torch.ops import fused_backup as FB
+    C = stats.shape[3]
+    A, P = C - 2, raw[4].shape[1]
+    dev = stats.device
+    path_p, depth = raw[0], raw[3]
+    live = ((torch.arange(path_p.shape[1], device=dev)[None] < depth[:, None])
+            & (path_p >= 0) & (path_p < stats.shape[1]))
+    elems = torch.cat([
+        torch.arange(A + 1, device=dev),                 # PVALID, flag
+        torch.tensor([FB.CHILD * C + A, FB.EW * C + A], device=dev),
+        torch.arange(P, device=dev) * C + A + 1])
+    return _touched(stats, *FB.packed_operands(stats, *raw), node_col=A,
+                    live=live, row_elems=elems)
+
+
+def _entry_work(stats, *raw):
+    """``(bytes, adds)`` that one ``backprop_packed`` needs at least: the
+    per-board scalars, value_vec, term_vec and pvalid_new read in full, the
+    three path arrays only at live levels, parent and action only where a
+    child is installed, and every stats element that receives a term read
+    and written once.  The slot is a launch argument."""
+    import torch
+    B, A, P = stats.shape[0], stats.shape[3] - 2, raw[4].shape[1]
+    idx, _, live, inst = _entry_touched(stats, *raw)
+    per_board = 4 + 8 + 1 + 1 + 8 + 4 + 2 * 4 * P + 4 * A
+    nbytes = (B * per_board + live * 12 + inst * 16
+              + torch.unique(idx).numel() * 8)
+    return nbytes, idx.numel() + B * A
+
+
+def _check_made_up(FB, dev, g):
+    """Both packed contracts against their plain versions on made-up cases
+    with repeats, collisions and paths of three chunks, the last with rows
+    wider than the kernels hold in registers; returns the largest
+    difference."""
+    import torch
+    worst = 0.0
+    for B, A, P, slot in ((512, 409, 2, 7), (512, 409, 3, "per_board"),
+                          (512, 409, 4, 1), (64, 2101, 2, "per_board")):
+        args = _made_up_entry_args(B, 40, A, 70, P, g, dev, slot)
+        want = FB.backprop_packed_plain(args[0].clone(), *args[1:])
+        ops = FB.packed_operands(*args)
+        for got in (FB.backprop_packed(args[0].clone(), *args[1:]),
+                    FB.packed_backup(args[0].clone(), *ops)):
+            if not torch.equal(got, want):
+                worst = max(worst, (got - want).abs().max().item())
+    return worst
+
+
+def _check_replay(FB, base, raws, ops):
+    """A search's backups replayed in order on copies of ``base``: the entry
+    on the raw arguments, the operand contract on the operands built from
+    them, and the plain version.  Returns the largest difference of each
+    kernel from the plain version, over all simulations, and raises unless
+    both are 0."""
+    import torch
+    got, got_ops, want = base.clone(), base.clone(), base.clone()
+    err_entry = err_packed = 0.0
+    for raw, op in zip(raws, ops):
+        FB.backprop_packed(got, *raw)
+        FB.packed_backup(got_ops, *op)
+        FB.backprop_packed_plain(want, *raw)
+        if not torch.equal(got, want):
+            err_entry = max(err_entry, (got - want).abs().max().item())
+        if not torch.equal(got_ops, want):
+            err_packed = max(err_packed, (got_ops - want).abs().max().item())
+    live = torch.stack([raw[3] for raw in raws]).float()
+    print(f"fused_backup packed {list(base.shape)} S1={raws[0][0].shape[1]}, "
+          f"{len(raws)} sims of a search (live levels per board: mean "
+          f"{live.mean().item():.2f}, max {int(live.max())}): max |kernel - "
+          f"plain| = {err_entry:.3g} (entry), {err_packed:.3g} (operand "
+          f"contract)", flush=True)
+    if err_entry != 0.0 or err_packed != 0.0:
+        raise AssertionError(f"packed contracts disagree: entry {err_entry}, "
+                             f"operands {err_packed}")
+    return live
 
 
 def phase_kernels():
@@ -208,6 +357,7 @@ def phase_kernels():
     from alphazero_tpu_torch.ops import fused_backup as FB
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
+    kname = "fused_backup_"
     out = {}
 
     # split contract (the Pallas kernel's), repeated pairs included
@@ -221,69 +371,138 @@ def phase_kernels():
     if not err_split <= 1e-6:
         raise AssertionError(f"split contract disagrees: {err_split}")
     st = args[0].clone()
-    split_ms = _device_ms(lambda: FB.fused_backup(st, *args[1:]),
-                          "fused_backup_kernel")
+
+    def split():
+        for _ in range(16):
+            FB.fused_backup(st, *args[1:])
+    split_ms = _device_ms(split, kname, per_call=16)
     split_plain_ms = _device_ms(lambda: FB.fused_backup_plain(st, *args[1:]),
                                 warmup=1)
-    del args, got, want, st
+    idx, val, _, _ = _touched(st, *args[1:])
+    flat = st.view(-1)
+    split_library_ms = _device_ms(
+        lambda: flat.index_put_((idx,), val, accumulate=True))
+    split_bytes, split_adds = _operand_work(st, *args[1:])
+    split_bound_ms, split_bound_by = _bound(split_bytes, split_adds)
+    del args, got, want, st, flat, idx, val
 
-    # packed contract (the search's): the operands of all 64 simulations of
-    # a main-path search, applied in order to the stats the last one found
-    base, ops = _search_backup_operands()
+    # made-up collisions and repeats, both packed contracts
+    err_made_up = _check_made_up(FB, dev, g)
+    print(f"fused_backup made-up repeats and slot collisions, entry and "
+          f"operand contract: max |kernel - plain| = {err_made_up:.3g}",
+          flush=True)
+    if err_made_up != 0.0:
+        raise AssertionError(f"made-up case disagrees: {err_made_up}")
+
+    # packed contracts (the search's): the arguments of all 64 simulations
+    # of a main-path search, applied in order to the stats the last one found
+    base, raws = _search_backup_args()
     node_col = base.shape[3] - 2
-    live = torch.stack([(op[0] < base.shape[1]).sum(1) for op in ops]).float()
-    got, want, err_packed = base.clone(), base.clone(), 0.0
-    for op in ops:
-        FB.packed_backup(got, *op)
-        FB.fused_backup_plain(want, *op, node_col=node_col)
-        if not torch.equal(got, want):
-            err_packed = max(err_packed, (got - want).abs().max().item())
-    print(f"fused_backup packed {list(base.shape)} S1={ops[0][0].shape[1]}, "
-          f"{len(ops)} sims of a search (live levels per board: mean "
-          f"{live.mean().item():.2f}, max {int(live.max())}): max |kernel - "
-          f"plain| = {err_packed:.3g}", flush=True)
-    if err_packed != 0.0:
-        raise AssertionError(f"packed contract disagrees: {err_packed}")
-    del got, want
-    n, st = len(ops), base.clone()
+    n = len(raws)
+    ops = [FB.packed_operands(base, *raw) for raw in raws]
+    live = _check_replay(FB, base, raws, ops)
+    st = base.clone()
 
-    def kernel():
+    def entry():
+        for raw in raws:
+            FB.backprop_packed(st, *raw)
+
+    def operand():
         for op in ops:
             FB.packed_backup(st, *op)
 
-    def plain():
-        for op in ops:
-            FB.fused_backup_plain(st, *op, node_col=node_col)
-    ms = _device_ms(kernel, "fused_backup_kernel", per_call=n)
-    plain_ms = _device_ms(plain, warmup=1, per_call=n)
-    plain_wall_ms = _time_host_ms(plain) / n
-    flats = [_packed_flat(base, *op) for op in ops]
-    flat = st.view(-1)
+    def built_operand():
+        for raw in raws:
+            _operand_backprop(st, *raw)
 
-    def library():
-        for idx, val in flats:
+    def plain():                  # a Python loop over levels: every 8th sim
+        for raw in raws[::8]:
+            FB.backprop_packed_plain(st, *raw)
+    entry_ms = _device_ms(entry, kname, per_call=n)
+    operand_ms = _device_ms(operand, kname, per_call=n)
+    plain_ms = _device_ms(plain, warmup=1, per_call=len(raws[::8]))
+    plain_wall_ms = _time_host_ms(plain) / len(raws[::8])
+    # the host's share: what one backup costs the caller, synchronized
+    host_operand_ms = _time_host_ms(built_operand) / n
+    host_entry_ms = _time_host_ms(entry) / n
+    flat = st.view(-1)
+    flats = [_entry_touched(base, *raw)[:2] for raw in raws]
+    flats_ops = [_touched(base, *op, node_col=node_col)[:2] for op in ops]
+
+    def library(pairs):
+        for idx, val in pairs:
             flat.index_put_((idx,), val, accumulate=True)
-    library_ms = _device_ms(library, per_call=n)
+    library_ms = _device_ms(lambda: library(flats), per_call=n)
+    operand_library_ms = _device_ms(lambda: library(flats_ops), per_call=n)
+    del flats, flats_ops
     # least work, as the mean over the search's launches
-    work = [_packed_work(base, *op) for op in ops]
-    nbytes = sum(b for b, _ in work) / n
-    adds = sum(a for _, a in work) / n
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, adds / FP32_OPS_PER_S) * 1e3
-    bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S >= adds / FP32_OPS_PER_S
-                else "operations")
-    print(f"fused_backup device ms per launch: split kernel {split_ms:.4f}, "
-          f"split plain {split_plain_ms:.3f}; packed kernel {ms:.4f}, packed "
-          f"plain {plain_ms:.3f} (host wall {plain_wall_ms:.3f}), index_put_ "
-          f"{library_ms:.4f}, bound {bound_ms:.5f} ({nbytes:.0f} bytes, "
-          f"{bound_by})", flush=True)
-    out["fused_backup"] = dict(
-        max_abs_err=max(err_split, err_packed), ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-        plain_wall_ms=plain_wall_ms, split_ms=split_ms,
-        split_plain_ms=split_plain_ms, bytes=nbytes, adds=adds,
-        live_levels_mean=live.mean().item(), live_levels_max=int(live.max()))
-    del base, ops, st, flat, flats
+    work = [_entry_work(base, *raw) for raw in raws]
+    nbytes, adds = (sum(x[i] for x in work) / n for i in (0, 1))
+    bound_ms, bound_by = _bound(nbytes, adds)
+    work = [_operand_work(base, *op, node_col=node_col) for op in ops]
+    op_bytes, op_adds = (sum(x[i] for x in work) / n for i in (0, 1))
+    operand_bound_ms, operand_bound_by = _bound(op_bytes, op_adds)
+    del base, raws, ops, st, flat
     torch.cuda.empty_cache()
+
+    # both packed contracts at self-play's shapes (at S1=128 a path has four
+    # chunks of levels and a block has an SM to itself), held to the plain
+    # version there too; what stays of the B=1024 time is latency, what
+    # falls with B is bytes
+    small_ms = {}
+    for B, S in ((192, 32), (64, 128)):
+        base, raws = _search_backup_args(B=B, S=S)
+        ops = [FB.packed_operands(base, *raw) for raw in raws]
+        _check_replay(FB, base, raws, ops)
+
+        def small_entry():
+            for raw in raws:
+                FB.backprop_packed(base, *raw)
+
+        def small_operand():
+            for op in ops:
+                FB.packed_backup(base, *op)
+        small_ms[f"B{B}_M{S + 1}"] = {
+            "entry": _device_ms(small_entry, kname, per_call=len(raws)),
+            "operand": _device_ms(small_operand, kname, per_call=len(raws))}
+        del base, raws, ops
+    torch.cuda.empty_cache()
+
+    def us(ms):
+        return f"{ms * 1e3:.3f}"
+    print(f"fused_backup device us per launch at B=1024: entry "
+          f"{us(entry_ms)}, bound {bound_ms * 1e3:.4f} ({nbytes:.0f} bytes, "
+          f"{bound_by}), plain {plain_ms * 1e3:.1f} (host wall "
+          f"{plain_wall_ms * 1e3:.1f}), index_put_ {library_ms * 1e3:.1f}; "
+          f"operand contract {us(operand_ms)}, bound "
+          f"{operand_bound_ms * 1e3:.4f} ({op_bytes:.0f} bytes, "
+          f"{operand_bound_by}), index_put_ {operand_library_ms * 1e3:.1f}; "
+          f"split {us(split_ms)}, bound {split_bound_ms * 1e3:.4f} "
+          f"({split_bytes} bytes, {split_bound_by}), plain "
+          f"{split_plain_ms * 1e3:.1f}, index_put_ "
+          f"{split_library_ms * 1e3:.1f}", flush=True)
+    print("fused_backup device us per launch at self-play's shapes, entry / "
+          "operand contract: "
+          + ", ".join(f"{k} {v['entry'] * 1e3:.3f} / {v['operand'] * 1e3:.3f}"
+                      for k, v in small_ms.items()), flush=True)
+    print(f"backup host us per launch, synchronized (median of 5 replays of "
+          f"{n} sims): operand building + operand contract "
+          f"{host_operand_ms * 1e3:.1f}, entry {host_entry_ms * 1e3:.1f}",
+          flush=True)
+    out["fused_backup"] = dict(
+        # the replays raise unless they are exact, so they add 0
+        max_abs_err=max(err_split, err_made_up),
+        ms=entry_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms, small_ms=small_ms,
+        plain_wall_ms=plain_wall_ms, bytes=nbytes, adds=adds,
+        operand_ms=operand_ms, operand_bound_ms=operand_bound_ms,
+        operand_bound_by=operand_bound_by, operand_bytes=op_bytes,
+        operand_library_ms=operand_library_ms,
+        split_ms=split_ms, split_plain_ms=split_plain_ms,
+        split_bound_ms=split_bound_ms, split_bound_by=split_bound_by,
+        split_bytes=split_bytes, split_library_ms=split_library_ms,
+        host_operand_ms=host_operand_ms, host_entry_ms=host_entry_ms,
+        live_levels_mean=live.mean().item(), live_levels_max=int(live.max()))
     return out
 
 
@@ -342,6 +561,7 @@ def phase_search(reps=5):
     import torch
     from alphazero_tpu_torch.games.splendor import adapter as A
     from alphazero_tpu_torch.ops import fused_backup as FB
+    from alphazero_tpu_torch.search import mcts as M
     B, S = 1024, 64
     cfg, net, search, roots, g = _main_search(B=B, S=S)
     search(net, roots, generator=g)                       # warm-up
@@ -377,9 +597,23 @@ def phase_search(reps=5):
           f"{spans}; device busy {prof['device_busy_ms']} ms, idle share "
           f"{prof['device_idle_share']}, {prof['kernel_launches']} kernels",
           flush=True)
+    # One profiled search with the backup's operands built by PyTorch ops,
+    # as before the kernel built them, for the span's host time.
+    M.backprop_packed = _operand_backprop
+    try:
+        prof_ops = _profile(lambda: search(net, roots, generator=g))
+    finally:
+        M.backprop_packed = FB.backprop_packed
+    print(f"search with operand building / with the entry: mcts.backup host "
+          f"span "
+          f"{prof_ops['spans_host_ms']['mcts.backup']:.1f} / "
+          f"{prof['spans_host_ms']['mcts.backup']:.1f} ms per profiled "
+          f"search, {prof_ops['kernel_launches']} / "
+          f"{prof['kernel_launches']} kernels", flush=True)
     return {"rollouts_per_s": rps, "search_ms": statistics.median(times) * 1e3,
             "launches": launches, "reps": reps, "batch": B, "sims": S,
-            "times_s": times, "profile": prof}
+            "times_s": times, "profile": prof,
+            "operand_building": {"profile": prof_ops}}
 
 
 def phase_selfplay():
@@ -473,11 +707,15 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
     smi, build_s = phase_build()
     kernels = phase_kernels()
+    t_kernels = time.perf_counter() - t0
     search = phase_search()
     selfplay = phase_selfplay()
     reference = phase_reference()
+    total_s = time.perf_counter() - t0
+    print(f"kernel phase {t_kernels:.0f} s of {total_s:.0f} s", flush=True)
 
     kb = kernels["fused_backup"]
     line = {"kernels": [{
@@ -488,7 +726,8 @@ def main(argv=None) -> int:
         "max_abs_err": kb["max_abs_err"], "ms": kb["ms"],
         "plain_ms": kb["plain_ms"], "bound_ms": kb["bound_ms"],
         "bound_by": kb["bound_by"], "library_ms": kb["library_ms"]}]}
-    record = {"card": smi, "build_s": build_s, "kernels": kernels,
+    record = {"card": smi, "build_s": build_s, "seconds": total_s,
+              "kernels": kernels,
               "search": search, "selfplay": selfplay, "reference": reference,
               "torch": torch.__version__, "cuda": torch.version.cuda}
     if args.out:
