@@ -1,34 +1,45 @@
 """Three-head Splendor network (policy / value / score-diff) in PyTorch.
 
-Port of ``SplendorNet`` (versions 0 and 1) of
-``alphazero_tpu/models/splendor_net.py``: a global-pooling MLP trunk, a
-masked log-softmax policy, a per-player tanh value and a 31-bin score-diff
-distribution per seat.  Layouts follow the JAX module, so ``from_flax``
-carries its parameters over one to one:
+Port of ``alphazero_tpu/models/splendor_net.py``: ``SplendorNet``
+(versions 0 and 1: a global-pooling MLP trunk) and ``SplendorNetV2``
+(version 2: a wider trunk with pre-activation residual MLP blocks after the
+flatten), each with a masked log-softmax policy, a per-player tanh value
+and a 31-bin score-diff distribution per seat.  Layouts follow the Flax
+modules, so ``from_flax`` and ``to_flax`` carry parameters over one to one:
 
 - a Flax ``Dense`` kernel is ``(in, out)``; ``nn.Linear`` stores ``(out,
   in)``, so the kernel is transposed;
-- Flax ``BatchNorm(axis=1)`` on ``(B, 7, w)`` or ``(B, 1, F)`` is
-  ``BatchNorm1d`` over dim 1, eps 1e-5, with running statistics in eval
-  mode.
+- a port module ``dense_k`` / ``bn_k`` / ``gpool_k`` is the Flax module
+  ``Dense_k`` / ``BatchNorm_k`` / ``DenseAndPartialGPool_k`` (Flax numbers
+  each kind in creation order); a pool's own ``dense`` and ``bn`` are its
+  ``Dense_0`` and ``BatchNorm_0``;
+- Flax ``BatchNorm(axis=1)`` on ``(B, 7, w)`` or ``(B, 1, F)`` normalizes
+  over dim 1, and ``BatchNorm()`` on ``(B, w)`` over the last dim, as
+  ``BatchNorm1d`` does with those inputs.
 
-The heads always compute in float32, with the ``LOW_VALUE`` mask before the
-policy's log-softmax.  Float32 matmuls on the GPU run in full float32:
-``apply_inference`` turns TF32 off explicitly.
+Train mode is Flax's: BatchNorm normalizes with the batch mean and the
+biased batch variance ``mean(x^2) - mean(x)^2`` (clipped at 0) and moves
+its running statistics by momentum 0.99 with that same biased variance
+(``nn.BatchNorm1d`` would move them with the unbiased one); dropout draws
+its mask from an explicit ``torch.Generator``.  The heads always compute in
+float32, with the ``LOW_VALUE`` mask before the policy's log-softmax.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
 
-from ..utils.device import resolve_device
+from ..utils.checkpoint import tree_items
+from ..utils.device import full_fp32, resolve_device
 
 LOW_VALUE = -1e8
+BN_MOMENTUM = 0.99              # Flax's default: running = m*running + (1-m)*batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,9 +63,27 @@ class NetConfig:
         return 2 * self.max_score_diff + 1
 
 
-def _bn(channels: int) -> nn.BatchNorm1d:
-    # Flax BatchNorm: eps 1e-5, momentum 0.99 (= torch momentum 0.01)
-    return nn.BatchNorm1d(channels, eps=1e-5, momentum=0.01)
+class FlaxBatchNorm(nn.BatchNorm1d):
+    """``BatchNorm1d`` (eps 1e-5, the feature dim 1) whose train mode is
+    Flax's: batch statistics with the biased variance, and the running
+    statistics moved by ``BN_MOMENTUM`` with that same variance.  Eval mode
+    normalizes with the running statistics, as ``BatchNorm1d`` does."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=1e-5, momentum=1.0 - BN_MOMENTUM)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        dims = [0] + list(range(2, x.dim()))
+        mean = x.mean(dims)
+        var = ((x * x).mean(dims) - mean * mean).clamp(min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
 
 
 class DenseAndPartialGPool(nn.Module):
@@ -68,7 +97,7 @@ class DenseAndPartialGPool(nn.Module):
         self.pool_len = nb_groups * nb_items
         self.dense = nn.Linear(in_features - self.pool_len,
                                output_length - 2 * nb_groups)
-        self.bn = _bn(channels)
+        self.bn = FlaxBatchNorm(channels)
 
     def forward(self, x):
         g = x[..., :self.pool_len].reshape(*x.shape[:-1], self.nb_groups,
@@ -90,112 +119,262 @@ def _flatten_and_partial_gpool(x, length_to_pool: int,
     return out[:, None, :]
 
 
-class SplendorNet(nn.Module):
-    """Trunk + PI/V/SDIFF heads (nn_version 0 and 1)."""
+def _flat_features(w: int, channels: int) -> int:
+    return 2 * (w // 2) + (channels - 5) * (w // 2) + channels * (w - w // 2)
 
-    def __init__(self, cfg: NetConfig):
+
+class _Net(nn.Module):
+    """What both versions share: the config checks, Flax dropout and the
+    three heads (``dense_{h}..dense_{h+5}``)."""
+
+    def __init__(self, cfg: NetConfig, versions):
         super().__init__()
-        if cfg.nn_version not in (0, 1):
-            raise ValueError(f"nn_version {cfg.nn_version} is not ported yet "
-                             f"(ported: 0, 1)")
+        if cfg.nn_version not in versions:
+            raise ValueError(f"nn_version {cfg.nn_version} is not a version "
+                             f"of {type(self).__name__} {sorted(versions)}")
         if cfg.dtype != "float32":
             raise ValueError(f"dtype {cfg.dtype!r}: the port's net computes "
                              f"in float32")
         self.cfg = cfg
+
+    def _add_heads(self, w: int, first: int):
+        """``dense_{first}..dense_{first+5}``: (hidden, out) for PI, V and
+        SDIFF, in Flax's creation order."""
+        c = self.cfg
+        self._heads = [f"dense_{first + k}" for k in range(6)]
+        outs = (w, c.action_size, w, c.num_players, w,
+                c.num_scdiffs * c.scdiff_size)
+        for name, fout in zip(self._heads, outs):
+            setattr(self, name, nn.Linear(w, fout))
+
+    def _drop(self, x, generator):
+        """Flax ``Dropout``: keep with probability ``1 - rate`` and scale by
+        its inverse, in train mode only."""
+        rate = self.cfg.dropout
+        if not self.training or rate == 0.0:
+            return x
+        keep = 1.0 - rate
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0)
+
+    def _head_outputs(self, x, valid_actions):
+        c = self.cfg
+        pi_h, pi, v_h, v, sd_h, sd = (getattr(self, n) for n in self._heads)
+        pi = torch.where(valid_actions, pi(pi_h(x)), LOW_VALUE)
+        log_sdiff = F.log_softmax(
+            sd(sd_h(x)).reshape(-1, c.num_scdiffs, c.scdiff_size), -1)
+        return F.log_softmax(pi, -1), torch.tanh(v(v_h(x))), log_sdiff
+
+
+class SplendorNet(_Net):
+    """Trunk + PI/V/SDIFF heads (nn_version 0 and 1)."""
+
+    def __init__(self, cfg: NetConfig):
         w, C = cfg.width, cfg.vect_dim
-        flat = 2 * (w // 2) + (C - 5) * (w // 2) + C * (w - w // 2)
+        super().__init__(cfg, (0, 1))
         self.dense_0 = nn.Linear(cfg.nb_vect, w)
-        self.bn_0 = _bn(C)
+        self.bn_0 = FlaxBatchNorm(C)
         self.dense_1 = nn.Linear(w, w)
         self.gpool_0 = DenseAndPartialGPool(w, w, 4, 8, C)
         self.dense_2 = nn.Linear(w, w)
-        self.dense_3 = nn.Linear(flat, w)
+        self.dense_3 = nn.Linear(_flat_features(w, C), w)
         self.gpool_1 = DenseAndPartialGPool(w, w, 4, 4, 1)
         self.dense_4 = nn.Linear(w, w)
-        self.bn_1 = _bn(1)
+        self.bn_1 = FlaxBatchNorm(1)
         self.dense_5 = nn.Linear(w, w)
         self.gpool_2 = DenseAndPartialGPool(w, w, 4, 4, 1)
-        self.dense_6 = nn.Linear(w, w)
-        self.dense_7 = nn.Linear(w, cfg.action_size)
-        self.dense_8 = nn.Linear(w, w)
-        self.dense_9 = nn.Linear(w, cfg.num_players)
-        self.dense_10 = nn.Linear(w, w)
-        self.dense_11 = nn.Linear(w, cfg.num_scdiffs * cfg.scdiff_size)
-        self.drop = nn.Dropout(cfg.dropout)
+        self._add_heads(w, 6)
 
-    def forward(self, boards, valid_actions):
-        """boards (B, nb_vect, 7) float; valid_actions (B, A) bool.
-        Returns (log_pi (B, A), v (B, P), log_sdiff (B, num_scdiffs, 31))."""
-        c = self.cfg
+    def forward(self, boards, valid_actions, generator=None):
+        """boards (B, nb_vect, 7) float; valid_actions (B, A) bool;
+        ``generator`` draws the dropout masks in train mode.  Returns
+        (log_pi (B, A), v (B, P), log_sdiff (B, num_scdiffs, 31))."""
+        def drop(y):
+            return self._drop(y, generator)
         x = boards.transpose(-1, -2).to(torch.float32)       # (B, 7, nb_vect)
         x = F.relu(self.bn_0(self.dense_0(x)))
         x = F.relu(self.dense_1(x))
-        x = self.drop(self.gpool_0(x))
-        x = self.drop(F.relu(self.dense_2(x)))
-        x = _flatten_and_partial_gpool(x, c.width // 2, 5)
-        x = self.drop(F.relu(self.dense_3(x)))
-        x = self.drop(self.gpool_1(x))
+        x = drop(self.gpool_0(x))
+        x = drop(F.relu(self.dense_2(x)))
+        x = _flatten_and_partial_gpool(x, self.cfg.width // 2, 5)
+        x = drop(F.relu(self.dense_3(x)))
+        x = drop(self.gpool_1(x))
         x = F.relu(self.bn_1(self.dense_4(x)))
-        x = self.drop(F.relu(self.dense_5(x)))
-        x = self.drop(self.gpool_2(x))
-
-        x = x[:, 0, :].to(torch.float32)                     # f32 heads
-        pi = self.dense_7(self.dense_6(x))
-        v = self.dense_9(self.dense_8(x))
-        sd = self.dense_11(self.dense_10(x))
-        pi = torch.where(valid_actions, pi, LOW_VALUE)
-        log_pi = F.log_softmax(pi, -1)
-        log_sdiff = F.log_softmax(
-            sd.reshape(-1, c.num_scdiffs, c.scdiff_size), -1)
-        return log_pi, torch.tanh(v), log_sdiff
+        x = drop(F.relu(self.dense_5(x)))
+        x = drop(self.gpool_2(x))
+        return self._head_outputs(x[:, 0, :], valid_actions)
 
 
-def build_net(cfg: NetConfig, device="cuda") -> SplendorNet:
-    """A ``SplendorNet`` in eval mode on ``device`` (weights from torch's
-    default init; load real ones with ``from_flax``)."""
-    return SplendorNet(cfg).to(resolve_device(device)).eval()
+class SplendorNetV2(_Net):
+    """nn_version 2: width ``max(cfg.width, 256)``, the first pooled block,
+    the flatten, then two pre-activation residual MLP blocks."""
+
+    def __init__(self, cfg: NetConfig):
+        w, C = max(cfg.width, 256), cfg.vect_dim
+        super().__init__(cfg, (2,))
+        self.w = w
+        self.dense_0 = nn.Linear(cfg.nb_vect, w)
+        self.bn_0 = FlaxBatchNorm(C)
+        self.dense_1 = nn.Linear(w, w)
+        self.gpool_0 = DenseAndPartialGPool(w, w, 4, 8, C)
+        self.dense_2 = nn.Linear(_flat_features(w, C), w)
+        # residual block r: bn_{1+r}, dense_{3+2r}, dense_{4+2r}
+        self.bn_1, self.bn_2 = FlaxBatchNorm(w), FlaxBatchNorm(w)
+        for k in range(3, 7):
+            setattr(self, f"dense_{k}", nn.Linear(w, w))
+        self._add_heads(w, 7)
+
+    def forward(self, boards, valid_actions, generator=None):
+        """Same contract as ``SplendorNet.forward``."""
+        x = boards.transpose(-1, -2).to(torch.float32)       # (B, 7, nb_vect)
+        x = F.relu(self.bn_0(self.dense_0(x)))
+        x = F.relu(self.dense_1(x))
+        x = self._drop(self.gpool_0(x), generator)
+        x = _flatten_and_partial_gpool(x, self.w // 2, 5)[:, 0, :]
+        x = F.relu(self.dense_2(x))
+        for r in range(2):
+            h = F.relu(getattr(self, f"bn_{1 + r}")(x))
+            h = F.relu(getattr(self, f"dense_{3 + 2 * r}")(h))
+            x = x + self._drop(getattr(self, f"dense_{4 + 2 * r}")(h),
+                               generator)
+        return self._head_outputs(x, valid_actions)
 
 
-def apply_inference(net: SplendorNet, boards, valid_actions):
+# nn_version registry: versions 0 and 1 share the reference layer stack (the
+# eras differ by action-space size, which lives in cfg.action_size)
+NET_VERSIONS = {0: SplendorNet, 1: SplendorNet, 2: SplendorNetV2}
+
+
+def init_params(net: nn.Module, generator: torch.Generator | None = None):
+    """Flax's initializers, in place: ``kaiming_uniform`` kernels (variance
+    scaling 2.0, fan_in, uniform: U(-sqrt(6/in), sqrt(6/in))), zero biases,
+    BatchNorm scale 1 and bias 0, running mean 0 and variance 1.  Returns
+    ``net``."""
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, nn.Linear):
+                lim = math.sqrt(6.0 / m.in_features)
+                w = torch.empty(m.weight.shape, dtype=m.weight.dtype)
+                w.uniform_(-lim, lim, generator=generator)
+                m.weight.copy_(w)
+                m.bias.zero_()
+            elif isinstance(m, FlaxBatchNorm):
+                m.reset_parameters()
+    return net
+
+
+def build_net(cfg: NetConfig, device="cuda",
+              generator: torch.Generator | None = None) -> nn.Module:
+    """The version ``cfg.nn_version`` names, in eval mode on ``device``,
+    initialized by ``init_params`` from ``generator`` (a CPU generator;
+    seed 0 when None).  Float32 matmuls run in full float32 on the GPU
+    (TF32 off) for every net the port builds."""
+    dev = resolve_device(device)
+    try:
+        cls = NET_VERSIONS[cfg.nn_version]
+    except KeyError:
+        raise ValueError(
+            f"unknown nn_version {cfg.nn_version}; "
+            f"registered: {sorted(NET_VERSIONS)}") from None
+    full_fp32()
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return init_params(cls(cfg), generator).to(dev).eval()
+
+
+def apply_inference(net: nn.Module, boards, valid_actions):
     """Eval-mode forward: returns (pi probs, v, log_sdiff)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     net.eval()
     with torch.inference_mode():
         log_pi, v, log_sd = net(boards, valid_actions)
     return torch.exp(log_pi), v, log_sd
 
 
-# Flax module path -> port module name.  Top-level Dense_k / BatchNorm_k
-# keep their creation order; DenseAndPartialGPool_k holds Dense_0 and
-# BatchNorm_0.
-_FLAX_DENSE = {f"Dense_{k}": f"dense_{k}" for k in range(12)}
-_FLAX_DENSE.update({f"DenseAndPartialGPool_{k}/Dense_0": f"gpool_{k}.dense"
-                    for k in range(3)})
-_FLAX_BN = {"BatchNorm_0": "bn_0", "BatchNorm_1": "bn_1"}
-_FLAX_BN.update({f"DenseAndPartialGPool_{k}/BatchNorm_0": f"gpool_{k}.bn"
-                 for k in range(3)})
+def running_stats(net: nn.Module) -> dict[str, torch.Tensor]:
+    """The running statistics, by state_dict key."""
+    return {k: v for k, v in net.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
 
 
-def _leaf(tree, path):
-    for p in path.split("/"):
-        tree = tree[p]
-    return np.array(tree, np.float32)          # a writable copy
+def apply_train(net: nn.Module, boards, valid_actions,
+                generator: torch.Generator | None = None):
+    """Train-mode forward: batch statistics in BatchNorm, whose running
+    statistics move in place, and dropout masks from ``generator``.
+    Returns ``((log_pi, v, log_sdiff), new running statistics)``."""
+    net.train()
+    out = net(boards, valid_actions, generator=generator)
+    return out, running_stats(net)
+
+
+def count_params(net: nn.Module) -> int:
+    return sum(p.numel() for p in net.parameters())
+
+
+# ---------------------------------------------------------------- Flax layout
+_KINDS = {"dense": "Dense", "bn": "BatchNorm", "gpool": "DenseAndPartialGPool"}
+_KINDS_INV = {v: k for k, v in _KINDS.items()}
+_INNER = {"dense": "Dense_0", "bn": "BatchNorm_0"}
+_INNER_INV = {v: k for k, v in _INNER.items()}
+# state_dict leaf -> (Flax collection, leaf name); "weight" is a Dense
+# "kernel" or a BatchNorm "scale"
+_LEAVES = {"bias": ("params", "bias"),
+           "running_mean": ("batch_stats", "mean"),
+           "running_var": ("batch_stats", "var")}
+
+
+def _flax_module(module: str) -> tuple[str, ...]:
+    """Port module path -> Flax module path ("gpool_1.bn" ->
+    ("DenseAndPartialGPool_1", "BatchNorm_0"))."""
+    head, *inner = module.split(".")
+    kind, k = head.rsplit("_", 1)
+    return (f"{_KINDS[kind]}_{k}",) + tuple(_INNER[i] for i in inner)
+
+
+def _port_module(path: tuple[str, ...]) -> str:
+    kind, k = path[0].rsplit("_", 1)
+    return ".".join([f"{_KINDS_INV[kind]}_{k}"]
+                    + [_INNER_INV[p] for p in path[1:]])
 
 
 def from_flax(params, batch_stats) -> dict[str, torch.Tensor]:
-    """A ``SplendorNet`` state_dict from Flax ``(params, batch_stats)``
-    trees of numpy arrays (as ``alphazero_tpu.v1`` checkpoints hold them)."""
+    """A state_dict from Flax ``(params, batch_stats)`` trees of arrays (as
+    ``alphazero_tpu.v1`` checkpoints hold them), for any version."""
     sd: dict[str, torch.Tensor] = {}
-    for fpath, name in _FLAX_DENSE.items():
-        sd[f"{name}.weight"] = torch.from_numpy(
-            np.ascontiguousarray(_leaf(params, fpath + "/kernel").T))
-        sd[f"{name}.bias"] = torch.from_numpy(_leaf(params, fpath + "/bias"))
-    for fpath, name in _FLAX_BN.items():
-        sd[f"{name}.weight"] = torch.from_numpy(_leaf(params, fpath + "/scale"))
-        sd[f"{name}.bias"] = torch.from_numpy(_leaf(params, fpath + "/bias"))
-        sd[f"{name}.running_mean"] = torch.from_numpy(
-            _leaf(batch_stats, fpath + "/mean"))
-        sd[f"{name}.running_var"] = torch.from_numpy(
-            _leaf(batch_stats, fpath + "/var"))
-        sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+    for path, leaf in tree_items(params):
+        mod, name = _port_module(path[:-1]), path[-1]
+        a = np.array(leaf, np.float32)                  # a writable copy
+        if name == "kernel":
+            sd[f"{mod}.weight"] = torch.from_numpy(np.ascontiguousarray(a.T))
+        elif name == "scale":
+            sd[f"{mod}.weight"] = torch.from_numpy(a)
+        else:
+            sd[f"{mod}.{name}"] = torch.from_numpy(a)
+    for path, leaf in tree_items(batch_stats):
+        mod, name = _port_module(path[:-1]), path[-1]
+        sd[f"{mod}.running_{name}"] = torch.from_numpy(np.array(leaf,
+                                                                np.float32))
+        sd[f"{mod}.num_batches_tracked"] = torch.tensor(0)
     return sd
+
+
+def to_flax(state_dict) -> tuple[dict, dict]:
+    """Flax ``(params, batch_stats)`` numpy trees from a state_dict (or
+    any dict of parameter-shaped tensors, such as Adam moments, whose
+    ``batch_stats`` is then empty): the inverse of ``from_flax``."""
+    trees = {"params": {}, "batch_stats": {}}
+    for key, t in state_dict.items():
+        mod, leaf = key.rsplit(".", 1)
+        if leaf == "num_batches_tracked":
+            continue
+        a = t.detach().cpu().numpy().astype(np.float32)
+        if leaf == "weight" and a.ndim == 2:
+            coll, name, a = "params", "kernel", np.ascontiguousarray(a.T)
+        elif leaf == "weight":
+            coll, name = "params", "scale"
+        else:
+            coll, name = _LEAVES[leaf]
+        node = trees[coll]
+        for p in _flax_module(mod):
+            node = node.setdefault(p, {})
+        node[name] = a
+    return trees["params"], trees["batch_stats"]

@@ -15,3 +15,11 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "device 'cuda' requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+def full_fp32():
+    """Float32 matmuls and convolutions in full float32 on the GPU (TF32
+    off), as the JAX package computes them; set where a net is built, for
+    inference and training alike."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

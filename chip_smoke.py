@@ -19,6 +19,19 @@ Phases (each raises on failure):
    forced playouts, 12 moves;
 5. the same small search on the CPU (plain versions) and on the card, as
    the reference check;
+6. train: ``fit`` for one epoch of r6's ``TrainConfig`` (batch 64, lr 3e-4,
+   augmentation on, dropout 0.3, one chunk of 64 steps) on the self-play
+   phase's examples, from ``runs/r6/best.pt`` with its Adam moments: steps/s,
+   examples/s, ms per step, the first and last loss, one profiled chunk's
+   device busy time, idle share and kernels per step, and one step from the
+   same batch (fixed symmetry choices, dropout 0) on the card and the CPU;
+7. coach: one ``Coach.learn`` iteration from the r6 weights (16 games, 32
+   sims, 8 gate games at 16 sims): the stages' seconds, examples,
+   rollouts/s and the gate tally; asserts one backup launch per simulation
+   the coach's searches ran, holds a spread of those launches at each of
+   the coach's search shapes exactly to the plain version on the stats and
+   arguments each was given, and checks that the checkpoint written on the
+   card loads on the CPU with the card's forward;
 then one JSON line with every kernel's launches, error and times, and the
 last line ``{"ok": true, "device": {...}}``.  It exits non-zero, printing
 no result, when there is no CUDA device.  With ``--out``, the full
@@ -462,9 +475,15 @@ def phase_kernels():
         def small_operand():
             for op in ops:
                 FB.packed_backup(base, *op)
+        work = [_entry_work(base, *raw) for raw in raws]
+        small_bytes = sum(x[0] for x in work) / len(work)
+        small_bound_ms, small_bound_by = _bound(
+            small_bytes, sum(x[1] for x in work) / len(work))
         small_ms[f"B{B}_M{S + 1}"] = {
             "entry": _device_ms(small_entry, kname, per_call=len(raws)),
-            "operand": _device_ms(small_operand, kname, per_call=len(raws))}
+            "operand": _device_ms(small_operand, kname, per_call=len(raws)),
+            "bound_ms": small_bound_ms, "bound_by": small_bound_by,
+            "bytes": small_bytes}
         del base, raws, ops
     torch.cuda.empty_cache()
 
@@ -482,8 +501,10 @@ def phase_kernels():
           f"{split_plain_ms * 1e3:.1f}, index_put_ "
           f"{split_library_ms * 1e3:.1f}", flush=True)
     print("fused_backup device us per launch at self-play's shapes, entry / "
-          "operand contract: "
+          "operand contract (entry bound): "
           + ", ".join(f"{k} {v['entry'] * 1e3:.3f} / {v['operand'] * 1e3:.3f}"
+                      f" (bound {v['bound_ms'] * 1e3:.4f}, {v['bytes']:.0f} "
+                      f"bytes, {v['bound_by']})"
                       for k, v in small_ms.items()), flush=True)
     print(f"backup host us per launch, synchronized (median of 5 replays of "
           f"{n} sims): operand building + operand contract "
@@ -518,9 +539,9 @@ def _r6_net(cfg, device):
 
 def _profile(fn):
     """One profiled call of ``fn``: host time per ``mcts.*`` span, device
-    busy time (union of kernel intervals) against the wall time, and the
-    kernels with the most device time.  Device numbers are None when the
-    profiler saw no kernels."""
+    busy time (union of kernel and copy intervals) against the wall time,
+    and the kernels with the most device time.  Device numbers are None
+    when the profiler saw no kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -532,13 +553,15 @@ def _profile(fn):
         _sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, kernels, intervals = {}, {}, []
-    for e in prof.events():
-        span = e.name.startswith("mcts.")
-        if e.device_type == DeviceType.CPU and span:
+    events = prof.events()
+    # annotations (the mcts.* spans, Optimizer.step#...) show up on the
+    # device timeline too, under the name of their host range
+    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name.startswith("mcts."):
             spans[e.name] = (spans.get(e.name, 0.0)
                              + e.time_range.elapsed_us() / 1e3)
-        # the spans show up on the device timeline too, as annotations
-        elif e.device_type == DeviceType.CUDA and not span:
+        elif e.device_type == DeviceType.CUDA and e.name not in host_names:
             intervals.append((e.time_range.start, e.time_range.end))
             kernels[e.name] = (kernels.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3)
@@ -655,7 +678,271 @@ def phase_selfplay():
     print(f"self-play B=256 S=128 PCR: {rps:.1f} rollouts/s, {n} examples in "
           f"{dt:.2f} s; backup launches {launches}", flush=True)
     return {"rollouts_per_s": rps, "seconds": dt, "examples": n,
-            "rollouts": stats["rollouts"], "launches": launches}
+            "rollouts": stats["rollouts"], "launches": launches}, it
+
+
+def _r6_train_state(net_cfg, device):
+    """A train state holding ``runs/r6/best.pt`` (strict) with its Adam
+    moments, read by the port's own load chain."""
+    from alphazero_tpu_torch.models import splendor_net as N
+    from alphazero_tpu_torch.train import trainer as TR
+    from alphazero_tpu_torch.utils import checkpoint as C
+    state = TR.init_train_state(net_cfg, device=device)
+    target, _ = N.to_flax(state.net.state_dict())
+    ck = C.load_network(os.path.join(ROOT, "runs", "r6"), "best.pt", target,
+                        fallback=False)
+    if ck["load_mode"] != "strict":
+        raise AssertionError(f"r6 loaded {ck['load_mode']}")
+    state.net.load_state_dict(N.from_flax(ck["params"], ck["batch_stats"]))
+    return TR.load_opt_state(state, ck["opt_state"])
+
+
+def _card_vs_cpu_step(cfg, replay, lr=3e-4):
+    """One train step from r6 (its Adam moments included) on the same
+    batch on the card and on the CPU: fixed symmetry choices, dropout 0.
+    Returns the largest parameter difference; raises past the CPU parity
+    test's tolerance (atol 1e-5, rtol 1e-4)."""
+    import numpy as np
+    import torch
+    from alphazero_tpu_torch.games.splendor import adapter as A
+    from alphazero_tpu_torch.games.splendor import symmetry as SYM
+    from alphazero_tpu_torch.models import splendor_net as N
+    from alphazero_tpu_torch.train import trainer as TR
+    from alphazero_tpu_torch.utils.checkpoint import tree_items
+    rng = np.random.default_rng(7)
+    b = replay.sample(64, rng)
+    boards, pi, valids = SYM.apply_symmetry(
+        cfg, torch.from_numpy(b["boards"]), torch.from_numpy(b["pi"]),
+        torch.from_numpy(b["valids"]), rng.integers(0, 4, (64, 3)),
+        rng.integers(0, 3, (64, cfg.num_players)))
+    b.update(boards=boards.numpy(), pi=pi.numpy(), valids=valids.numpy())
+    net_cfg = A.net_config_for(cfg, dropout=0.0)
+    tcfg = TR.TrainConfig(batch_size=64, augment=False)
+    params = {}
+    for dev in ("cpu", "cuda"):
+        st = _r6_train_state(net_cfg, dev)
+        st, _ = TR.make_train_step(cfg, net_cfg, tcfg)(
+            st, b, lr, 10.0, torch.Generator(device=dev))
+        params[dev] = dict(tree_items(N.to_flax(st.net.state_dict())[0]))
+    want, got = params["cpu"], params["cuda"]
+    err = 0.0
+    for k, w in want.items():
+        diff = np.abs(got[k] - w)
+        err = max(err, float(diff.max()))
+        if not (diff <= 1e-5 + 1e-4 * np.abs(w)).all():
+            raise AssertionError(f"card and CPU step differ at {k}: "
+                                 f"{float(diff.max())}")
+    return err
+
+
+def phase_train(it):
+    """``fit`` at the r6 model's full width on the self-play examples."""
+    import numpy as np
+    import torch
+    from alphazero_tpu_torch.games.splendor import adapter as A
+    from alphazero_tpu_torch.games.splendor import env as E
+    from alphazero_tpu_torch.train import replay as R
+    from alphazero_tpu_torch.train import trainer as TR
+    cfg = E.SplendorConfig(num_players=2)
+    net_cfg = A.net_config_for(cfg, dropout=0.3, nn_version=1, width=128)
+    B, K = 64, 64
+    tcfg = TR.TrainConfig(learn_rate=3e-4, vl_weight=10.0, batch_size=B,
+                          epochs=1, augment=True)
+    replay = R.ReplayBuffer()
+    replay.add_iteration(it)
+    chunk = TR.make_train_chunk(cfg, net_cfg, tcfg)
+    step = TR.make_train_step(cfg, net_cfg, tcfg)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rng = np.random.default_rng(5)
+
+    def stacked():
+        b = replay.sample(K * B, rng)
+        return {k: v.reshape((K, B) + v.shape[1:]) for k, v in b.items()}
+    lrs = [TR.onecycle_lr(j, K, tcfg.learn_rate) for j in range(K)]
+    chunk(_r6_train_state(net_cfg, "cuda"), stacked(), lrs, 10.0, gen)
+    _sync()                                           # warm-up, discarded
+    state = _r6_train_state(net_cfg, "cuda")
+    step0 = state.step
+    t0 = time.perf_counter()
+    state, metrics = TR.fit(state, step, replay, tcfg, rng, gen,
+                            train_chunk_fn=chunk, chunk_steps=K)
+    _sync()
+    dt = time.perf_counter() - t0
+    steps = state.step - step0
+    if steps != K or not np.isfinite(metrics["loss"]):
+        raise AssertionError(f"fit took {steps} steps, loss {metrics}")
+    batches, out = stacked(), {}
+    prof = _profile(lambda: out.update(series=chunk(
+        state, batches, lrs, 10.0, gen, per_step=True)[1]))
+    losses = out["series"]["loss"].tolist()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite train losses {losses}")
+    err = _card_vs_cpu_step(cfg, replay)
+    rec = {"examples_in_replay": len(replay), "steps": steps, "seconds": dt,
+           "steps_per_s": steps / dt, "examples_per_s": steps * B / dt,
+           "ms_per_step": dt / steps * 1e3, "fit_loss": metrics["loss"],
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "chunk_profile": prof,
+           "kernels_per_step": prof["kernel_launches"] / K,
+           "device_busy_ms_per_step": (None if prof["device_busy_ms"] is None
+                                       else prof["device_busy_ms"] / K),
+           "card_vs_cpu_max_param_diff": err}
+    print(f"train fit B={B} K={K} (r6, augment, dropout 0.3) on {len(replay)} "
+          f"examples: {rec['steps_per_s']:.1f} steps/s, "
+          f"{rec['examples_per_s']:.1f} examples/s, {rec['ms_per_step']:.3f} "
+          f"ms/step; chunk loss first {losses[0]:.4f} last {losses[-1]:.4f}; "
+          f"profiled chunk: wall {prof['wall_ms']:.1f} ms, device busy "
+          f"{prof['device_busy_ms']} ms, idle share "
+          f"{prof['device_idle_share']}, {rec['kernels_per_step']:.1f} "
+          f"kernels/step; card vs CPU step max |dparam| {err:.3g}",
+          flush=True)
+    return rec
+
+
+def _recording_backup(samples, first=4, every=32, cap=12):
+    """``mcts.backprop_packed`` that also keeps, for a spread of its calls at
+    each shape ``(B, M, S1)`` (the first ``first``, then every ``every``-th,
+    ``cap`` at most), the stats it was given, its arguments and the stats
+    the kernel left, in ``samples``.  It launches the kernel once per call,
+    as the search's own backup does."""
+    import torch
+    from alphazero_tpu_torch.ops import fused_backup as FB
+    calls = {}
+
+    def record(stats, *args):
+        key = (stats.shape[0], stats.shape[1], args[0].shape[1])
+        i = calls[key] = calls.get(key, -1) + 1
+        kept = samples.setdefault(key, [])
+        keep = (i < first or i % every == 0) and len(kept) < cap
+        before = stats.clone() if keep else None
+        out = FB.backprop_packed(stats, *args)
+        if keep:
+            kept.append((before, tuple(a.clone() if torch.is_tensor(a) else a
+                                       for a in args), out.clone()))
+        return out
+    return record, calls
+
+
+def _check_recorded(samples, calls):
+    """The kept backups of ``_recording_backup`` against the plain version
+    on the stats and arguments each call was given; returns the largest
+    difference and raises unless it is 0."""
+    import torch
+    from alphazero_tpu_torch.ops import fused_backup as FB
+    worst = 0.0
+    for key, kept in sorted(samples.items()):
+        err = 0.0
+        for before, raw, got in kept:
+            want = FB.backprop_packed_plain(before.clone(), *raw)
+            if not torch.equal(got, want):
+                err = max(err, (got - want).abs().max().item())
+        print(f"fused_backup entry in the coach's searches, B={key[0]} "
+              f"M={key[1]} S1={key[2]}: {len(kept)} of {calls[key] + 1} sims "
+              f"held to plain, max |kernel - plain| = {err:.3g}", flush=True)
+        worst = max(worst, err)
+    if worst != 0.0:
+        raise AssertionError(f"the coach's backups disagree: {worst}")
+    return worst
+
+
+def phase_coach():
+    """One ``Coach.learn`` iteration on the card from the r6 weights."""
+    import tempfile
+    import numpy as np
+    import torch
+    from alphazero_tpu_torch.models import splendor_net as N
+    from alphazero_tpu_torch.ops import fused_backup as FB
+    from alphazero_tpu_torch.search import mcts as M
+    from alphazero_tpu_torch.train.coach import Coach, CoachConfig
+    from alphazero_tpu_torch.utils import checkpoint as C
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = CoachConfig(num_players=2, num_iters=1, games_per_iter=16,
+                          selfplay_batch=16, num_sims=32, ratio_full=4,
+                          prob_full=0.25, forced_playouts=True,
+                          arena_games=8, gate_num_sims=16, batch_size=64,
+                          train_chunk_steps=8, checkpoint_dir=tmp, seed=0)
+        coach = Coach(cfg, device="cuda")
+        coach.load_checkpoint(os.path.join(ROOT, "runs", "r6"), "best.pt",
+                              load_examples=False)
+        sims, stage = [0], {}
+
+        def counted(search, n):              # simulations, at the search
+            def run(*a, **kw):
+                sims[0] += n
+                return search(*a, **kw)
+            return run
+        eng = coach.selfplay
+        eng.search_full = counted(eng.search_full, cfg.num_sims)
+        eng.search_fast = counted(eng.search_fast, eng.fast_sims)
+        coach._gate_match.search = counted(coach.gate_search,
+                                           cfg.gate_num_sims)
+
+        def timed(name, fn):
+            def run(*a, **kw):
+                _sync()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                _sync()
+                stage[name] = time.perf_counter() - t0
+                return out
+            return run
+        for name in ("self_play_iteration", "train_iteration", "gate"):
+            setattr(coach, name, timed(name, getattr(coach, name)))
+        seen, samples = {}, {}
+        M.backprop_packed, calls = _recording_backup(samples)
+        try:
+            FB.fused_backup.launches = 0
+            coach.learn(on_iteration=lambda it, sp, m, g, acc: seen.update(
+                sp=sp, metrics=m, gate=g, accept=acc))
+            _sync()
+            launches = FB.fused_backup.launches
+        finally:
+            M.backprop_packed = FB.backprop_packed
+        if launches != sims[0]:
+            raise AssertionError(f"backup kernel launched {launches} times for "
+                                 f"{sims[0]} simulations")
+        # the kernel at the coach's own shapes, against its plain version
+        backup_err = _check_recorded(samples, calls)
+        del samples
+        nw, ow, dr = seen["gate"]
+        if nw + ow + dr != cfg.arena_games or not np.isfinite(
+                seen["metrics"]["loss"]):
+            raise AssertionError(f"gate {seen['gate']}, train "
+                                 f"{seen['metrics']}")
+        # the file written on the card, read on the CPU
+        name = "best.pt" if seen["accept"] else "temp.pt"
+        ck = C.load_checkpoint(tmp, name)
+        cpu_net = N.build_net(coach.net_cfg, "cpu")
+        cpu_net.load_state_dict(N.from_flax(ck["params"], ck["batch_stats"]))
+        b = coach.replay.sample(64, np.random.default_rng(3))
+        boards = torch.from_numpy(b["boards"]).float()
+        valids = torch.from_numpy(b["valids"])
+        card = N.apply_inference(coach.bundle, boards.cuda(), valids.cuda())
+        cpu = N.apply_inference(cpu_net, boards, valids)
+        errs = [float((g.cpu() - w).abs().max()) for g, w in zip(card, cpu)]
+        sd_ok = ((card[2].cpu() - cpu[2]).abs()
+                 <= 1e-5 + 2e-6 * cpu[2].abs()).all()
+        if max(errs[:2]) > 1e-5 or not bool(sd_ok):
+            raise AssertionError(f"{name}: card vs CPU forward {errs}")
+    sp = seen["sp"]
+    rec = {"stage_seconds": stage, "examples": sp["examples"],
+           "games": sp["games"], "rollouts": sp["rollouts"],
+           "rollouts_per_s": sp["rollouts_per_s"], "gate": [nw, ow, dr],
+           "accepted": seen["accept"], "train_loss": seen["metrics"]["loss"],
+           "simulations": sims[0], "launches": launches,
+           "backup_max_abs_err": backup_err,
+           "backup_shapes": {f"B{b}_M{m}_S1{s}": n + 1
+                             for (b, m, s), n in sorted(calls.items())},
+           "checkpoint": name, "card_vs_cpu_forward_err": errs}
+    print(f"coach 1 iteration: self-play {stage['self_play_iteration']:.2f} s "
+          f"({sp['examples']} examples, {sp['rollouts_per_s']:.1f} "
+          f"rollouts/s), train {stage['train_iteration']:.2f} s (loss "
+          f"{seen['metrics']['loss']:.4f}), gate {stage['gate']:.2f} s "
+          f"(new-old-draws {nw}-{ow}-{dr}, "
+          f"{'accepted' if seen['accept'] else 'rejected'}); backup launches "
+          f"{launches} = simulations {sims[0]}; {name} on the CPU: forward "
+          f"|card - cpu| {max(errs):.3g}", flush=True)
+    return rec
 
 
 def phase_reference():
@@ -712,8 +999,10 @@ def main(argv=None) -> int:
     kernels = phase_kernels()
     t_kernels = time.perf_counter() - t0
     search = phase_search()
-    selfplay = phase_selfplay()
+    selfplay, examples = phase_selfplay()
     reference = phase_reference()
+    train = phase_train(examples)
+    coach = phase_coach()
     total_s = time.perf_counter() - t0
     print(f"kernel phase {t_kernels:.0f} s of {total_s:.0f} s", flush=True)
 
@@ -722,13 +1011,16 @@ def main(argv=None) -> int:
         "name": "fused_backup", "route": "cuda",
         "source": "alphazero_tpu_torch/ops/csrc/fused_backup.cu",
         "replaces": "alphazero_tpu/ops/fused_backup.py:118",
-        "launches": search["launches"] + selfplay["launches"],
-        "max_abs_err": kb["max_abs_err"], "ms": kb["ms"],
+        "launches": (search["launches"] + selfplay["launches"]
+                     + coach["launches"]),
+        "max_abs_err": max(kb["max_abs_err"], coach["backup_max_abs_err"]),
+        "ms": kb["ms"],
         "plain_ms": kb["plain_ms"], "bound_ms": kb["bound_ms"],
         "bound_by": kb["bound_by"], "library_ms": kb["library_ms"]}]}
     record = {"card": smi, "build_s": build_s, "seconds": total_s,
               "kernels": kernels,
               "search": search, "selfplay": selfplay, "reference": reference,
+              "train": train, "coach": coach,
               "torch": torch.__version__, "cuda": torch.version.cuda}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

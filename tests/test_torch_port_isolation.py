@@ -15,14 +15,22 @@ MODULES = [
     "alphazero_tpu_torch.games.splendor.tables",
     "alphazero_tpu_torch.games.splendor.env",
     "alphazero_tpu_torch.games.splendor.adapter",
+    "alphazero_tpu_torch.games.splendor.symmetry",
+    "alphazero_tpu_torch.models",
     "alphazero_tpu_torch.models.splendor_net",
     "alphazero_tpu_torch.ops._build",
     "alphazero_tpu_torch.ops.fused_backup",
     "alphazero_tpu_torch.search.mcts",
+    "alphazero_tpu_torch.train.losses",
     "alphazero_tpu_torch.train.replay",
     "alphazero_tpu_torch.train.selfplay",
+    "alphazero_tpu_torch.train.trainer",
+    "alphazero_tpu_torch.train.coach",
+    "alphazero_tpu_torch.eval.arena",
+    "alphazero_tpu_torch.cli.main",
     "alphazero_tpu_torch.utils.checkpoint",
     "alphazero_tpu_torch.utils.device",
+    "alphazero_tpu_torch.utils.native",
     "chip_smoke",
 ]
 
@@ -64,8 +72,12 @@ def test_entry_points_default_to_cuda():
     from alphazero_tpu_torch.games.splendor import adapter as A
     from alphazero_tpu_torch.games.splendor import env as E
     from alphazero_tpu_torch.models import splendor_net as N
+    from alphazero_tpu_torch.cli import main as CLI
+    from alphazero_tpu_torch.eval import arena as AR
     from alphazero_tpu_torch.search import mcts as M
+    from alphazero_tpu_torch.train import coach as CO
     from alphazero_tpu_torch.train import selfplay as SP
+    from alphazero_tpu_torch.train import trainer as TR
     if torch.cuda.is_available():
         pytest.skip("this check is about machines without a CUDA device")
     cfg = E.SplendorConfig()
@@ -79,6 +91,11 @@ def test_entry_points_default_to_cuda():
         lambda: SP.SelfPlayEngine(cfg, A.make_uniform_eval_fn(cfg),
                                   SP.SelfPlayConfig(batch_size=2,
                                                     num_sims=4)),
+        lambda: TR.init_train_state(A.net_config_for(cfg)),
+        lambda: AR.BatchArena(cfg, 2),
+        lambda: AR.FusedMatch(cfg, None, 2),
+        lambda: CO.Coach(CO.CoachConfig(checkpoint_dir="/nonexistent")),
+        lambda: CLI.main(["-C", "/nonexistent"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
