@@ -64,7 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tree-reuse", action=argparse.BooleanOptionalAction,
                    dest="tree_reuse", default=False,
                    help="cross-move MCTS tree carryover in self-play "
-                        "(default off; see docs/PERF.md)")
+                        "(default off; its cost on the GPU is in PERF.md)")
     p.add_argument("--stage-sims", type=str, default="auto", dest="stage_sims",
                    help="staged tree-capacity schedule for fresh searches: "
                         "'auto' (doubling from 16, +14-18%% measured), 'off', "

@@ -6,9 +6,11 @@ seat is controlled by an agent that acts on the whole batch at once:
 
 - ``BatchArena.play`` steps the games one move at a time from the mover's
   canonical frame, resolves a pending noble choice with the same mover's
-  agent, and settles games still running at the move cap by the engine's
-  judge.  It takes the initial states and the chance draws as optional
-  inputs, so a caller can replay the JAX package's.
+  agent, tells every stateful agent (one with ``on_move``, such as
+  ``ReusingAgent``) the move and the next mover's canonical states, and
+  settles games still running at the move cap by the engine's judge.  It
+  takes the initial states and the chance draws as optional inputs, so a
+  caller can replay the JAX package's.
 - ``FusedMatch`` is the JAX arena's device-fused match (``chunk_moves``
   moves per ``lax.scan`` call) as a Python loop over moves.  It keeps its
   semantics: states stay canonical with one shared ``offset`` (the absolute
@@ -122,6 +124,13 @@ class BatchArena:
                 states = torch.where(pending[:, None, None], stepped2, states)
             player = (player + 1) % cfg.num_players
             moves += 1
+            # stateful agents follow every move of the game, their own and
+            # the others'; an agent holding several seats hears it once
+            observers = {id(a): a for a in agents if hasattr(a, "on_move")}
+            if observers:
+                next_canon = self.canon(states, player)
+                for a in observers.values():
+                    a.on_move(actions, next_canon)
             ends = E.check_end_game(cfg, states).cpu().numpy()
             newly = ends.any(1) & ~done
             outcomes[newly] = ends[newly]
@@ -138,13 +147,15 @@ class BatchArena:
                            moves=moves)
 
 
-def _pick(counts, temp, generator):
-    """Greedy (temp ~ 0) or Gumbel-sampled action from visit counts."""
+def _pick(counts, temp, generator, gumbel=None):
+    """Greedy (temp ~ 0) or Gumbel-sampled action from visit counts;
+    ``gumbel [B, A]`` replaces the draw when given."""
     if temp <= 1e-6:
         return torch.argmax(counts, -1)
+    if gumbel is None:
+        gumbel = gumbel_noise(counts.shape, generator, counts.device)
     logits = torch.log(counts.clamp(min=1e-12)) / temp
-    return torch.argmax(logits + gumbel_noise(counts.shape, generator,
-                                              counts.device), -1)
+    return torch.argmax(logits + gumbel.to(counts.device), -1)
 
 
 def make_search_agent(search_fn, params_bundle, temp: float = 0.0) -> Agent:
@@ -153,6 +164,36 @@ def make_search_agent(search_fn, params_bundle, temp: float = 0.0) -> Agent:
         res = search_fn(params_bundle, canon, generator=generator)
         return _pick(res.counts, temp, generator)
     return agent
+
+
+class ReusingAgent:
+    """An agent that keeps one tree per board for the whole game, all seats
+    included: it searches from the tree on its own turns and re-roots it on
+    every move played (``on_move``, which ``BatchArena.play`` calls after
+    each move).  A board whose real next state differs from the tree's
+    child restarts from a fresh root.  ``reusing_search`` comes from
+    ``search.mcts.build_reusing_search``."""
+
+    def __init__(self, reusing_search, bundle, temp: float = 0.0):
+        self.rs = reusing_search
+        self.bundle = bundle
+        self.temp = temp
+        self.tree = None
+        self.n = None
+
+    def reset(self):
+        self.tree = None
+
+    def __call__(self, canon, generator=None, gumbel=None):
+        if self.tree is None:
+            self.tree, self.n = self.rs.init_tree(canon)
+        res, self.tree, self.n = self.rs.run(self.bundle, self.tree, self.n,
+                                             generator=generator)
+        return _pick(res.counts, self.temp, generator, gumbel)
+
+    def on_move(self, actions, next_canon):
+        if self.tree is not None:
+            self.tree, self.n = self.rs.reroot(self.tree, actions, next_canon)
 
 
 def _masked_argmax(pool, generator, gumbel):

@@ -320,7 +320,7 @@ fused_backup_entry_kernel(
     const long long* __restrict__ leaf_rot,
     const long long* __restrict__ parent, const long long* __restrict__ action,
     const unsigned char* __restrict__ fresh, const int* __restrict__ slot,
-    int slot_all, const float* __restrict__ pvalid_new,
+    const float* __restrict__ pvalid_new,
     const unsigned char* __restrict__ child_term,
     const long long* __restrict__ child_rot,
     const float* __restrict__ leaf_init_v, long long leaf_init_stride,
@@ -338,8 +338,7 @@ fused_backup_entry_kernel(
     const float* src = pvalid_new + static_cast<size_t>(b) * A;
     RowPart<kEntryBatch> R;
     R.load(src, A, 1.0f, tid - 32, 0);
-    const int sl = slot != nullptr ? slot[b] : slot_all;
-    float* dst = sb + sl * node_stride;
+    float* dst = sb + slot[b] * node_stride;
     R.add(dst, A, tid - 32, 0);
     add_row(dst, src, A, 1.0f, tid - 32,
             kRowThreads * kEntryBatch);        // a row wider than R
@@ -350,7 +349,7 @@ fused_backup_entry_kernel(
   const int* pp = path_p + static_cast<size_t>(b) * S1;
   const int* pa = path_a + static_cast<size_t>(b) * S1;
   const int* pr = path_r + static_cast<size_t>(b) * S1;
-  const int sl = slot != nullptr ? slot[b] : slot_all;
+  const int sl = slot[b];
   float* dst = sb + sl * node_stride;
   const int d = min(depth[b], S1);
   const int lr = static_cast<int>(leaf_rot[b]);
@@ -472,14 +471,14 @@ extern "C" int fused_backup_entry_launch(
     const int* path_a, const int* path_r, int S1, const int* depth,
     const float* value_vec, const long long* leaf_rot, const long long* parent,
     const long long* action, const unsigned char* fresh, const int* slot,
-    int slot_all, const float* pvalid_new, const unsigned char* child_term,
+    const float* pvalid_new, const unsigned char* child_term,
     const long long* child_rot, const float* leaf_init_v,
     long long leaf_init_stride, const float* term_vec, void* stream) {
   if (B <= 0) return 0;
   fused_backup_entry_kernel<<<B, kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       stats, M, C, P, path_p, path_a, path_r, S1, depth, value_vec, leaf_rot,
-      parent, action, fresh, slot, slot_all, pvalid_new, child_term, child_rot,
+      parent, action, fresh, slot, pvalid_new, child_term, child_rot,
       leaf_init_v, leaf_init_stride, term_vec);
   return static_cast<int>(cudaGetLastError());
 }

@@ -48,8 +48,8 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _OPERAND_ARGTYPES = [_PTR, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _INT,
                      _PTR, _PTR, _PTR, _PTR, _INT, _PTR, _PTR]
 _ENTRY_ARGTYPES = [_PTR, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _INT, _PTR,
-                   _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _PTR, _PTR, _PTR,
-                   _PTR, ctypes.c_longlong, _PTR, _PTR]
+                   _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                   ctypes.c_longlong, _PTR, _PTR]
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,18 +98,20 @@ def _check_tensors(stats, want):
 
 
 def _check_slot(stats, slot):
-    """``(slot tensor or None, slot int)`` as the launch functions take it."""
-    if isinstance(slot, int):
-        if not 0 <= slot < stats.shape[1]:
-            raise ValueError(f"slot {slot} outside [0, {stats.shape[1]})")
-        return None, slot
+    """``slot`` must be int32 ``[B]`` on the stats' device; CPU tensors are
+    also checked to lie in ``[0, M)``."""
+    if not torch.is_tensor(slot):
+        raise ValueError(f"slot must be an int32 [B] tensor, got "
+                         f"{type(slot).__name__}")
     _check_tensors(stats, [(slot, (stats.shape[0],), torch.int32, "slot")])
-    return slot, 0
+    if stats.device.type == "cpu" and bool(
+            ((slot < 0) | (slot >= stats.shape[1])).any()):
+        raise ValueError(f"a slot lies outside [0, {stats.shape[1]})")
 
 
 def _check(stats, path_p, path_a, w, child_p, child_a, child_v, row, slot,
            node_col):
-    """Validate the operands; returns ``(row [B, lanes, C], slot [B])``."""
+    """Validate the operands; returns the row as ``[B, lanes, C]``."""
     _check_stats(stats)
     B, M, _, C = stats.shape
     S1 = path_p.shape[1] if path_p.dim() == 2 else -1
@@ -118,10 +120,7 @@ def _check(stats, path_p, path_a, w, child_p, child_a, child_v, row, slot,
     if row.dim() != 3 or row.shape[1] not in (1, 4):
         raise ValueError(f"row must be [B, C], [B, 1, C] or [B, 4, C], got "
                          f"{tuple(row.shape)}")
-    slot_t, slot_i = _check_slot(stats, slot)
-    if slot_t is None:
-        slot_t = torch.full((B,), slot_i, dtype=torch.int32,
-                            device=stats.device)
+    _check_slot(stats, slot)
     _check_tensors(stats, [
         (path_p, (B, S1), torch.int32, "path_p"),
         (path_a, (B, S1), torch.int32, "path_a"),
@@ -141,7 +140,7 @@ def _check(stats, path_p, path_a, w, child_p, child_a, child_v, row, slot,
             live = (path_p >= 0) & (path_p < M)
             if bool((path_a[live] == node_col).any()):
                 raise ValueError("a live level's path_a is the node column")
-    return row, slot_t
+    return row
 
 
 def fused_backup_plain(stats, path_p, path_a, w, child_p, child_a, child_v,
@@ -150,8 +149,8 @@ def fused_backup_plain(stats, path_p, path_a, w, child_p, child_a, child_v,
     indexing; within one level every board is a different index, so no
     index repeats inside one assignment, and repeated pairs across levels
     accumulate in level order."""
-    row, slot = _check(stats, path_p, path_a, w, child_p, child_a, child_v,
-                       row, slot, node_col)
+    row = _check(stats, path_p, path_a, w, child_p, child_a, child_v, row,
+                 slot, node_col)
     M = stats.shape[1]
     ar = torch.arange(stats.shape[0], device=stats.device)
     for s in range(path_p.shape[1]):
@@ -185,14 +184,14 @@ def fused_backup(stats, path_p, path_a, w, child_p, child_a, child_v, row,
     child_p, child_a [B] int32, child_v [B] float32 — child install
              (child_v == 0: none)
     row      [B, C] or [B, 1, C] (lane PVALID) or [B, 4, C] (all lanes)
-    slot     int or [B] int32 — the row's node per board
+    slot     [B] int32 — the row's node per board
     node_col optional column that receives every level's weights too
     """
     if stats.device.type == "cpu":
         return fused_backup_plain(stats, path_p, path_a, w, child_p, child_a,
                                   child_v, row, slot, node_col)
-    row, slot = _check(stats, path_p, path_a, w, child_p, child_a, child_v,
-                       row, slot, node_col)
+    row = _check(stats, path_p, path_a, w, child_p, child_a, child_v, row,
+                 slot, node_col)
     child_p, child_a, child_v, slot = (t.contiguous() for t in
                                        (child_p, child_a, child_v, slot))
     B, M, _, C = stats.shape
@@ -218,8 +217,7 @@ def packed_backup(stats, path_p, path_a, w, child_p, child_a, child_v, row,
 def _check_entry(stats, path_p, path_a, path_r, depth, value_vec, leaf_rot,
                  parent, action, fresh, slot, pvalid_new, child_term,
                  child_rot, leaf_init_v, term_vec):
-    """Validate ``backprop_packed``'s arguments; returns ``_check_slot``'s
-    pair."""
+    """Validate ``backprop_packed``'s arguments."""
     _check_stats(stats)
     B, M, _, C = stats.shape
     A = C - 2
@@ -250,7 +248,7 @@ def _check_entry(stats, path_p, path_a, path_r, depth, value_vec, leaf_rot,
         if bool((path_a[live] >= A).any()) or bool((action[fresh] >= A).any()):
             raise ValueError(f"a live level's path_a or a fresh edge's "
                              f"action is not an edge column (< {A})")
-    return _check_slot(stats, slot)
+    _check_slot(stats, slot)
 
 
 def packed_operands(stats, path_p, path_a, path_r, depth, value_vec, leaf_rot,
@@ -265,8 +263,7 @@ def packed_operands(stats, path_p, path_a, path_r, depth, value_vec, leaf_rot,
         < depth[:, None]
     v_l = value_vec.gather(1, (path_r.long() - leaf_rot[:, None]) % P)
     w = torch.stack([mask.to(torch.float32), torch.where(mask, v_l, 0.0)], -1)
-    slot_f = float(slot) if isinstance(slot, int) else slot.to(torch.float32)
-    child_v = (torch.where(fresh, slot_f, 0.0)
+    child_v = (torch.where(fresh, slot.to(torch.float32), 0.0)
                * torch.where(child_term, -1.0, 1.0))
     row = torch.zeros((B, 4, C), dtype=torch.float32, device=stats.device)
     row[:, PVALID, :A] = pvalid_new + 1.0
@@ -301,7 +298,7 @@ def backprop_packed(stats, path_p, path_a, path_r, depth, value_vec, leaf_rot,
     leaf_rot, parent, action, child_rot [B] int64; fresh, child_term [B]
         bool: a fresh edge ``(parent, action)`` gets the child pointer
         ``+slot``, or ``-slot`` when the child is terminal
-    slot int or [B] int32: the node this simulation expands.  Its row
+    slot [B] int32: the node this simulation expands on each board.  Its row
         receives ``pvalid_new [B, A]`` stored as ``-1 + (p + 1)`` over the
         -1 initialization (the JAX update's arithmetic, so the stored bits
         agree), the terminal flag, ``child_rot``, ``leaf_init_v [B]`` and
@@ -312,22 +309,21 @@ def backprop_packed(stats, path_p, path_a, path_r, depth, value_vec, leaf_rot,
             leaf_init_v, term_vec)
     if stats.device.type == "cpu":
         return backprop_packed_plain(stats, *args)
-    slot_t, slot_i = _check_entry(stats, *args)
-    if slot_t is not None:
-        slot_t = slot_t.contiguous()
+    _check_entry(stats, *args)
     # no launch where a tensor is contiguous already; leaf_init_v is often a
     # column of the value tensor, so its stride goes along instead
     (path_p, path_a, path_r, depth, value_vec, leaf_rot, parent, action,
-     fresh, pvalid_new, child_term, child_rot, term_vec) = (
+     fresh, slot, pvalid_new, child_term, child_rot, term_vec) = (
         t.contiguous() for t in (
             path_p, path_a, path_r, depth, value_vec, leaf_rot, parent,
-            action, fresh, pvalid_new, child_term, child_rot, term_vec))
+            action, fresh, slot, pvalid_new, child_term, child_rot,
+            term_vec))
     B, M, _, C = stats.shape
     return _launch(
         _kernels()[1], stats, B, M, C, value_vec.shape[1], path_p.data_ptr(),
         path_a.data_ptr(), path_r.data_ptr(), path_p.shape[1],
         depth.data_ptr(), value_vec.data_ptr(), leaf_rot.data_ptr(),
         parent.data_ptr(), action.data_ptr(), fresh.data_ptr(),
-        None if slot_t is None else slot_t.data_ptr(), slot_i,
-        pvalid_new.data_ptr(), child_term.data_ptr(), child_rot.data_ptr(),
-        leaf_init_v.data_ptr(), leaf_init_v.stride(0), term_vec.data_ptr())
+        slot.data_ptr(), pvalid_new.data_ptr(), child_term.data_ptr(),
+        child_rot.data_ptr(), leaf_init_v.data_ptr(), leaf_init_v.stride(0),
+        term_vec.data_ptr())

@@ -1,31 +1,36 @@
-"""Batched array MCTS in PyTorch: the fresh-tree search.
+"""Batched array MCTS in PyTorch: fresh-tree and tree-reusing searches.
 
-Port of ``build_search`` of ``alphazero_tpu/search/mcts.py``.  The tree of
-each board lives in fixed-shape tensors with the JAX search's packed
-layout: ``stats [B, M, 4, A+2]`` float32, whose action columns ``0..A-1``
-hold the edge lanes (prior or -1 where invalid, sign-packed child pointer,
-edge visits, edge value sum) and whose columns ``A`` and ``A+1`` hold the
-node scalars (terminal flag, seat rotation, visit count, value sum; the
-terminal value vector).  Each simulation:
+Port of ``build_search``, ``build_reusing_search`` and ``reroot`` of
+``alphazero_tpu/search/mcts.py``.  The tree of each board lives in
+fixed-shape tensors (``Tree``) with the JAX search's packed layout:
+``stats [B, M, 4, A+2]`` float32, whose action columns ``0..A-1`` hold the
+edge lanes (prior or -1 where invalid, sign-packed child pointer, edge
+visits, edge value sum) and whose columns ``A`` and ``A+1`` hold the node
+scalars (terminal flag, seat rotation, visit count, value sum; the
+terminal value vector); ``states [B, M, R, 7]`` and ``parent [B, M]``.
+One search core serves both: it runs on a tree whose board ``b`` holds
+``n0[b]`` nodes (1 for a fresh root), and each simulation:
 
 1. descends every board from its root with PUCT (plain PyTorch here);
 2. steps the chosen edge with the env and evaluates the leaf;
 3. backs the value up the recorded path, installs the child pointer and
-   writes the expanded node's row: one launch of the fused-backup kernel
-   (``ops/fused_backup.py::backprop_packed``) on every simulation, which
-   takes the raw outputs of steps 1 and 2.
+   writes the expanded node ``n0 + i``'s row: one launch of the
+   fused-backup kernel (``ops/fused_backup.py::backprop_packed``) on every
+   simulation, which takes the raw outputs of steps 1 and 2.
 
 The three steps run inside ``torch.profiler.record_function`` spans
 (``mcts.descent``, ``mcts.env_step``, ``mcts.evaluate``, ``mcts.backup``),
-which a profiler run reads to split the search's time.
+which a profiler run reads to split the search's time.  ``reroot`` runs
+once per move: gathers, one stable sort and scatters, no host read.
 
 Results equal the JAX search's: the PUCT score keeps its float32
-association, ties go to the lowest index, forced playouts read the global
-sim index and policy-target pruning the total sims.  The JAX search may
-split its sim loop into stages of growing capacity (``stage_sims``); staged
-and unstaged searches return equal results, so the port validates the
-schedule and runs one stage at full capacity.  Stats are float32 always,
-which is what ``stats_dtype="auto"`` resolves to off the TPU.
+association, ties go to the lowest index, forced playouts read the sim
+index of the call and policy-target pruning its sims.  The JAX search may
+split a fresh search's sim loop into stages of growing capacity
+(``stage_sims``); staged and unstaged searches return equal results, so
+the port validates the schedule and runs one stage at full capacity.
+Stats are float32 always, which is what ``stats_dtype="auto"`` resolves to
+off the TPU and what JAX requires of a reused tree.
 """
 
 from __future__ import annotations
@@ -74,12 +79,33 @@ class MCTSConfig:
     stage_sims: str = "auto"
 
 
+class Tree(NamedTuple):
+    """One tree per board; ``M`` = capacity = num_sims + keep_cap + 1."""
+    states: torch.Tensor      # [B, M, R, 7] int8, canonical
+    stats: torch.Tensor       # [B, M, 4, A+2] f32, lanes as above
+    parent: torch.Tensor      # [B, M] i32, parent node id (0 for the root)
+
+
 class SearchResult(NamedTuple):
     counts: torch.Tensor      # [B, A] f32 — visit counts, pruned if forced
     raw_counts: torch.Tensor  # [B, A] i32
     q: torch.Tensor           # [B, P] f32 — root Q per seat
     root_value: torch.Tensor  # [B, P] f32 — NN value at the root
     root_prior: torch.Tensor  # [B, A] f32
+
+
+class ReusingSearch(NamedTuple):
+    """The tree-reusing search:
+
+    init_tree(roots [B,R,7]) -> (Tree, n [B])            root-only trees
+    run(params, tree, n, generator=None, noise_gamma=None)
+        -> (SearchResult, tree, n + num_sims)            one search call
+    reroot(tree, actions [B], next_states [B,R,7]) -> (Tree, n [B])
+    """
+    init_tree: Callable
+    run: Callable
+    reroot: Callable
+    capacity: int
 
 
 # eval_fn(params, states_f32 [B,R,7], valids [B,A]) -> (probs, values [B,P])
@@ -156,10 +182,10 @@ def _select(cfg: MCTSConfig, stats, sim_idx: int, depth_cap: int,
     board in lockstep until all have stopped; a stopped board records only
     drop sentinels, which are also the buffers' initial values, so running
     fewer levels gives the same outputs as long as every board stops.
-    ``levels`` is that bound: a fresh tree after ``i`` sims has ``i + 1``
-    nodes and a path never revisits one, so ``min(i + 1, depth_cap)`` levels
-    suffice; boards that stop earlier are masked, and the loop ends early
-    when all have stopped (checked every few levels)."""
+    ``levels`` is that bound: a tree of ``n`` nodes has no path longer than
+    ``n`` levels, so ``min(n, depth_cap)`` levels for the largest ``n`` of
+    the batch suffice; boards that stop earlier are masked, and the loop
+    ends early when all have stopped (checked every few levels)."""
     B, M, _, A2 = stats.shape
     A = A2 - 2
     dev = stats.device
@@ -200,31 +226,43 @@ def _select(cfg: MCTSConfig, stats, sim_idx: int, depth_cap: int,
     return parent, action, existing, depth, prot, path_p, path_a, path_r
 
 
-def build_search(mcts_cfg: MCTSConfig, num_players: int, eval_fn: EvalFn,
-                 step_fn: StepFn, valid_fn, device="cuda"):
-    """Returns ``search(params, roots [B,R,7] int8, generator=None,
-    noise_gamma=None) -> SearchResult`` — a fresh tree per call.
-
-    ``eval_fn(params, states, valids)`` returns normalized masked policy
-    probabilities and per-seat values in the state's own frame.  With
-    ``add_noise``, ``noise_gamma [B, A]`` replaces the Gamma(alpha) draws
-    of the Dirichlet noise (the JAX search draws them with
-    ``jax.random.gamma``); without it they come from ``generator``."""
-    dev = resolve_device(device)
-    cfg = mcts_cfg
-    _resolve_stage_schedule(cfg)
+def _build_core(cfg: MCTSConfig, num_players: int, eval_fn: EvalFn,
+                step_fn: StepFn, valid_fn, keep_cap: int, dev: torch.device):
+    """The search over a caller's tree with per-board node counts ``n0``
+    (1: a fresh root-only tree).  Returns ``(init_tree, run, M)`` with
+    capacity ``M = num_sims + keep_cap + 1``."""
     if cfg.stats_dtype not in ("auto", "float32"):
-        raise ValueError(f"stats_dtype={cfg.stats_dtype!r}: the port stores "
-                         f"search stats in float32 ('auto' or 'float32')")
+        raise ValueError(
+            f"stats_dtype={cfg.stats_dtype!r}: the port stores search stats "
+            f"in float32 ('auto' or 'float32'); a reused tree's root visit "
+            f"counts also grow past 256, where bfloat16 +1 increments vanish")
     S = cfg.num_sims
-    M = S + 1
+    M = S + keep_cap + 1
     P = num_players
     PL = min(M - 1, cfg.max_depth) if cfg.max_depth > 0 else M - 1
 
-    def search(params, roots, generator=None, noise_gamma=None):
+    def init_tree(roots):
+        """Root-only trees for ``roots [B, R, 7]``: ``(Tree, n0 = ones(B))``."""
         roots = roots.to(dev)
         B, R, C = roots.shape
+        A = valid_fn(roots[:1]).shape[1]
+        stats = torch.zeros((B, M, 4, A + 2), dtype=torch.float32, device=dev)
+        stats[:, :, _PVALID, :A] = -1.0
+        states = torch.zeros((B, M, R, C), dtype=torch.int8, device=dev)
+        states[:, 0] = roots
+        return (Tree(states, stats,
+                     torch.zeros((B, M), dtype=torch.int32, device=dev)),
+                torch.ones(B, dtype=torch.int32, device=dev))
+
+    def run(params, tree, n0, generator=None, noise_gamma=None):
+        """``num_sims`` simulations on ``tree`` (updated in place); returns
+        ``(SearchResult, tree, n0 + num_sims)``.  With ``add_noise``,
+        ``noise_gamma [B, A]`` replaces the Gamma(alpha) draws of the
+        Dirichlet noise; without it they come from ``generator``."""
+        states, stats, parent_ids = tree
+        B = states.shape[0]
         ar = torch.arange(B, device=dev)
+        roots = states[:, 0]
         root_valid = valid_fn(roots)                              # [B, A]
         A = root_valid.shape[1]
         pi0, v0 = eval_fn(params, roots.to(torch.float32), root_valid)
@@ -241,19 +279,29 @@ def build_search(mcts_cfg: MCTSConfig, num_players: int, eval_fn: EvalFn,
             pi0 = _normalize_masked((1.0 - cfg.dirichlet_frac) * pi0
                                     + cfg.dirichlet_frac * noise, root_valid)
 
-        stats = torch.zeros((B, M, 4, A + 2), dtype=torch.float32, device=dev)
-        stats[:, :, _PVALID, :A] = -1.0
+        # the root's prior row is rewritten on every call; a carried root
+        # keeps its visit count, value sum and edge stats, a fresh one
+        # starts from the net's value
+        carried = n0 > 1
         stats[:, 0, _PVALID, :A] = torch.where(root_valid, pi0, -1.0)
-        stats[:, 0, _EW, A] = v0[:, 0]
-        states = torch.zeros((B, M, R, C), dtype=torch.int8, device=dev)
-        states[:, 0] = roots
+        stats[:, 0, _EN, A] = torch.where(carried, stats[:, 0, _EN, A], 0.0)
+        stats[:, 0, _EW, A] = torch.where(carried, stats[:, 0, _EW, A],
+                                          v0[:, 0])
+        # board b holds n0[b] + i nodes before sim i and a path never
+        # revisits a node, so the largest count bounds every descent
+        n_max = int(n0.max())
+        # row i: the node sim i expands on each board, n0 + i (made once,
+        # so a sim takes its row as a view and launches nothing for it)
+        slots = n0[None, :] + torch.arange(S, dtype=torch.int32,
+                                           device=dev)[:, None]
+        slots_l = slots.long()
 
         for i in range(S):
             with record_function("mcts.descent"):
                 (parent, action, existing, depth, parent_rot, path_p, path_a,
-                 path_r) = _select(cfg, stats, i, PL, min(i + 1, PL))
+                 path_r) = _select(cfg, stats, i, PL, min(n_max + i, PL))
             fresh = existing == 0
-            slot = 1 + i                    # the node this sim expands
+            slot = slots[i]
 
             with record_function("mcts.env_step"):
                 child_state, term_vec, child_valid, adv = step_fn(
@@ -264,7 +312,11 @@ def build_search(mcts_cfg: MCTSConfig, num_players: int, eval_fn: EvalFn,
                                         child_valid)
                 probs = _normalize_masked(probs, child_valid)
             child_term = term_vec.abs().sum(-1) > 0
-            states[:, slot] = child_state
+            # written on a revisit too, as an unreferenced dead slot; only
+            # reroot reads parent ids, so a fresh search's tree skips them
+            states[ar, slots_l[i]] = child_state
+            if keep_cap:
+                parent_ids[ar, slots_l[i]] = parent.to(torch.int32)
 
             with record_function("mcts.backup"):
                 # leaf frame: a revisited leaf's scalars come from its row
@@ -289,7 +341,7 @@ def build_search(mcts_cfg: MCTSConfig, num_players: int, eval_fn: EvalFn,
                        (-qs / (P - 1))[:, None].expand(B, P - 1)], 1)
         out_counts = counts.to(torch.float32)
         if cfg.forced_playouts:
-            # policy target pruning over the whole search budget
+            # policy target pruning over this call's sims
             best = counts.max(1, keepdim=True).values
             pruned = counts - torch.floor(torch.sqrt(
                 cfg.k_forced * root_prior * S)).to(torch.int32)
@@ -298,7 +350,121 @@ def build_search(mcts_cfg: MCTSConfig, num_players: int, eval_fn: EvalFn,
             total = out_counts.sum(-1, keepdim=True)
             out_counts = torch.where(total > 0, out_counts,
                                      counts.to(torch.float32))
-        return SearchResult(counts=out_counts, raw_counts=counts, q=q,
-                            root_value=v0, root_prior=root_prior)
+        result = SearchResult(counts=out_counts, raw_counts=counts, q=q,
+                              root_value=v0, root_prior=root_prior)
+        return result, tree, n0 + S
+
+    return init_tree, run, M
+
+
+def build_search(mcts_cfg: MCTSConfig, num_players: int, eval_fn: EvalFn,
+                 step_fn: StepFn, valid_fn, device="cuda"):
+    """Returns ``search(params, roots [B,R,7] int8, generator=None,
+    noise_gamma=None) -> SearchResult`` — a fresh tree per call.
+
+    ``eval_fn(params, states, valids)`` returns normalized masked policy
+    probabilities and per-seat values in the state's own frame.  With
+    ``add_noise``, ``noise_gamma [B, A]`` replaces the Gamma(alpha) draws
+    of the Dirichlet noise (the JAX search draws them with
+    ``jax.random.gamma``); without it they come from ``generator``."""
+    _resolve_stage_schedule(mcts_cfg)
+    init_tree, run, _ = _build_core(mcts_cfg, num_players, eval_fn, step_fn,
+                                    valid_fn, 0, resolve_device(device))
+
+    def search(params, roots, generator=None, noise_gamma=None):
+        return run(params, *init_tree(roots), generator, noise_gamma)[0]
 
     return search
+
+
+def build_reusing_search(mcts_cfg: MCTSConfig, num_players: int,
+                         eval_fn: EvalFn, step_fn: StepFn, valid_fn,
+                         keep_cap: int = 0, device="cuda") -> ReusingSearch:
+    """The tree-reusing search: ``run`` searches from a carried tree and
+    ``reroot`` re-roots it on the played action.  ``keep_cap`` bounds the
+    carried subtree (``<= 0``: ``num_sims``); the capacity is ``num_sims +
+    keep_cap + 1``.  Stage schedules do not apply: a carried tree runs at
+    full capacity."""
+    dev = resolve_device(device)
+    if keep_cap <= 0:
+        keep_cap = mcts_cfg.num_sims
+    init_tree, run, M = _build_core(mcts_cfg, num_players, eval_fn, step_fn,
+                                    valid_fn, keep_cap, dev)
+    P = num_players
+    KMAX = keep_cap + 1          # kept nodes, the new root included
+
+    def reroot(tree, actions, next_states):
+        """Re-root every board on ``(root, actions [B])`` and compact the
+        kept subtree to the buffer's head; returns ``(Tree, n_kept [B])``.
+        A board keeps its subtree only when the played edge has an
+        expanded, non-terminal child whose stored state equals the real
+        ``next_states`` (the chance draws matched the search's collapse);
+        otherwise it restarts from a fresh root.  It runs on the tree's
+        device and reads no value back to the host."""
+        states, stats, parent = tree
+        B, Mc, _, A2 = stats.shape
+        A = A2 - 2
+        dev = stats.device
+        ar = torch.arange(B, device=dev)
+        ar_m = torch.arange(Mc, device=dev)[None, :]
+        next_states = next_states.to(dev)
+        c_raw = stats[:, 0, _CHILD, :A].gather(
+            1, actions.to(dev).long()[:, None])[:, 0]
+        c_star = c_raw.abs().long()
+        match = (states[ar, c_star] == next_states).reshape(B, -1).all(-1)
+        valid = (c_star > 0) & match & ~(c_raw < 0.0)   # sign: terminal
+
+        # reachability from c_star by parent-pointer doubling; c_star and
+        # the root absorb, so anc == c_star exactly on c_star's subtree
+        anc = torch.where(ar_m == c_star[:, None], c_star[:, None],
+                          parent.long())
+        for _ in range(max(Mc - 1, 1).bit_length()):
+            anc = anc.gather(1, anc)
+        keep = (anc == c_star[:, None]) & valid[:, None]           # [B, M]
+
+        # c_star first, then kept nodes by visit count, then the rest; the
+        # stable sort keeps allocation order on ties, so an ancestor always
+        # precedes its descendants and truncation orphans no node
+        n_i = stats[:, :, _EN, A].clamp(max=2.0 ** 28).to(torch.int32)
+        key = ((ar_m == c_star[:, None]).to(torch.int32) * (1 << 30)
+               + keep.to(torch.int32) * (1 << 29) + n_i)
+        order = torch.argsort(-key, dim=1, stable=True)             # [B, M]
+        rank = torch.empty_like(order).scatter_(1, order,
+                                                ar_m.expand(B, Mc))
+        n_kept = torch.where(valid, keep.sum(1).clamp(max=KMAX), 1)
+        keep_fin = keep & (rank < n_kept[:, None])
+        new_id = torch.where(keep_fin, rank, 0)
+
+        # child pointers (keeping the sign-packed terminal flag) and parent
+        # ids remapped in the old layout, seat rotations rebased on c_star
+        child_f = stats[:, :, _CHILD, :A]
+        flat = child_f.abs().long().reshape(B, Mc * A)
+        child_new = torch.where(
+            (flat > 0) & keep_fin.gather(1, flat),
+            new_id.gather(1, flat).to(torch.float32)
+            * torch.where(child_f < 0, -1.0, 1.0).reshape(B, Mc * A),
+            0.0).reshape(B, Mc, A)
+        par = parent.long()
+        par_new = torch.where(keep_fin.gather(1, par), new_id.gather(1, par),
+                              0)
+        rot_new = torch.remainder(
+            stats[:, :, _CHILD, A] - stats[ar, c_star, _CHILD, A][:, None], P)
+
+        # rows gathered into the new order; rows past n_kept and boards
+        # without reuse are blank
+        live = (ar_m < n_kept[:, None]) & valid[:, None]            # [B, M]
+        rows = ar[:, None], order
+        new_stats = stats[rows]
+        new_stats[:, :, _CHILD, :A] = child_new[rows]
+        new_stats[:, :, _CHILD, A] = rot_new.gather(1, order)
+        empty = torch.zeros((4, A2), dtype=stats.dtype, device=dev)
+        empty[_PVALID, :A] = -1.0
+        new_stats = torch.where(live[:, :, None, None], new_stats, empty)
+        new_states = torch.where(live[:, :, None, None], states[rows], 0)
+        new_states[:, 0] = next_states
+        new_parent = torch.where(live, par_new.gather(1, order), 0)
+        return (Tree(new_states, new_stats, new_parent.to(torch.int32)),
+                n_kept.to(torch.int32))
+
+    return ReusingSearch(init_tree=init_tree, run=run, reroot=reroot,
+                         capacity=M)

@@ -80,7 +80,8 @@ class CoachConfig:
     forced_playouts: bool = False
     dirichlet_alpha: float = 0.2
     prior_temp: float = 1.25
-    tree_reuse: bool = False             # not ported yet: must stay off
+    tree_reuse: bool = False             # cross-move tree carryover in
+                                         # self-play (cost: PERF.md)
     stage_sims: str = "auto"
     # training
     learn_rate: float = 3e-4

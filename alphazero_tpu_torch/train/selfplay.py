@@ -1,11 +1,15 @@
 """Batched self-play: B games stepped in lockstep on the device.
 
-Port of ``SelfPlayEngine.run_games`` of ``alphazero_tpu/train/selfplay.py``
-with fresh trees (``tree_reuse=False``).  Every move runs the batched MCTS
-over all live boards, samples an action per board and steps the env with
-real chance draws.  Playout-cap randomization is per board and per move:
-the batch is split into a full-search part of ``round(prob_full * B)``
-boards and a fast part, with finished boards sorted into the fast part.
+Port of ``SelfPlayEngine.run_games`` of ``alphazero_tpu/train/selfplay.py``.
+Every move runs the batched MCTS over all live boards, samples an action
+per board and steps the env with real chance draws.  Playout-cap
+randomization is per board and per move: the batch is split into a
+full-search part of ``round(prob_full * B)`` boards and a fast part, with
+finished boards sorted into the fast part.  With ``tree_reuse`` each board
+carries its tree across moves: both parts search from their boards'
+carried trees, and after the move every tree is re-rooted on the played
+action (a board whose real chance draw left the tree restarts from a
+fresh root).
 Examples are kept only for full-search moves of live games, tagged with
 the root-Q vector, and finalized with per-player winner and score-diff
 vectors rolled into each mover's frame.
@@ -36,8 +40,7 @@ log = logging.getLogger(__name__)
 @dataclasses.dataclass(frozen=True)
 class SelfPlayConfig:
     """The JAX actor's configuration, less the fields that steer how it is
-    compiled (``donate_chunk``, ``reuse_barrier``, ``debug_outputs``).
-    ``tree_reuse`` is not ported yet and must stay off."""
+    compiled (``donate_chunk``, ``reuse_barrier``, ``debug_outputs``)."""
     batch_size: int = 128
     num_sims: int = 100
     ratio_full: int = 5            # fast sims = num_sims // ratio_full
@@ -90,9 +93,6 @@ def sample_actions(counts: torch.Tensor, temp: float,
 class SelfPlayEngine:
     def __init__(self, env_cfg: E.SplendorConfig, eval_fn, cfg: SelfPlayConfig,
                  device="cuda"):
-        if cfg.tree_reuse:
-            raise NotImplementedError("tree reuse is not ported yet; use "
-                                      "tree_reuse=False")
         self.device = resolve_device(device)
         self.env_cfg = env_cfg
         self.cfg = cfg
@@ -119,36 +119,69 @@ class SelfPlayEngine:
         self.search_fast = M.build_search(fast, self.n, eval_fn, step_fn,
                                           self.valid_fn, self.device)
         self.b_full = pcr_full_size(cfg.batch_size, cfg.prob_full)
+        if cfg.tree_reuse:
+            # one capacity for both searches, so a board's tree serves
+            # whichever part it lands in; reroot keeps what the full
+            # search may carry
+            self.rs_full = M.build_reusing_search(
+                full, self.n, eval_fn, step_fn, self.valid_fn,
+                keep_cap=full.num_sims, device=self.device)
+            self.rs_fast = M.build_reusing_search(
+                fast, self.n, eval_fn, step_fn, self.valid_fn,
+                keep_cap=self.rs_full.capacity - fast.num_sims - 1,
+                device=self.device)
 
     @property
     def fast_sims(self) -> int:
         return max(self.cfg.num_sims // self.cfg.ratio_full, 2)
 
-    def _search(self, bundle, states, done, gen):
-        """Counts, root Q and the full-search flag for every board."""
+    def _search(self, bundle, states, done, gen, carry=None):
+        """Counts, root Q and the full-search flag for every board, and
+        with tree reuse the carried ``(tree, n)`` after the searches (the
+        trees' roots are ``states``)."""
         B, b_full = states.shape[0], self.b_full
         if b_full >= B or b_full == 0:
-            search = self.search_full if b_full >= B else self.search_fast
-            res = search(bundle, states, generator=gen)
+            if carry is None:
+                search = self.search_full if b_full >= B else self.search_fast
+                res = search(bundle, states, generator=gen)
+            else:
+                rs = self.rs_full if b_full >= B else self.rs_fast
+                res, tree, n = rs.run(bundle, *carry, generator=gen)
+                carry = tree, n
             is_full = torch.full((B,), b_full >= B, dtype=torch.bool,
                                  device=self.device)
-            return res.counts, res.q, is_full
+            return res.counts, res.q, is_full, carry
         # stratified split; finished boards sort last (into the fast part)
         u_b = torch.rand(B, generator=gen, device=self.device)
         perm = torch.argsort(u_b + done.to(torch.float32), stable=True)
         inv = torch.empty_like(perm)
         inv[perm] = torch.arange(B, device=self.device)
-        res_f = self.search_full(bundle, states[perm[:b_full]], generator=gen)
-        res_s = self.search_fast(bundle, states[perm[b_full:]], generator=gen)
+        idx_f, idx_s = perm[:b_full], perm[b_full:]
 
         def merge(a, b):
             return torch.cat([a, b])[inv]
+        if carry is None:
+            res_f = self.search_full(bundle, states[idx_f], generator=gen)
+            res_s = self.search_fast(bundle, states[idx_s], generator=gen)
+        else:
+            # each part searches a copy of its boards' trees, which then
+            # goes back into the batch's tensors
+            tree, n = carry
+            res_f, tf, nf = self.rs_full.run(
+                bundle, M.Tree(*(t[idx_f] for t in tree)), n[idx_f],
+                generator=gen)
+            res_s, ts, ns = self.rs_fast.run(
+                bundle, M.Tree(*(t[idx_s] for t in tree)), n[idx_s],
+                generator=gen)
+            for t, a, b in zip(tree, tf, ts):
+                t[idx_f], t[idx_s] = a, b
+            carry = tree, merge(nf, ns)
         is_full = merge(torch.ones(b_full, dtype=torch.bool,
                                    device=self.device),
                         torch.zeros(B - b_full, dtype=torch.bool,
                                     device=self.device))
         return (merge(res_f.counts, res_s.counts), merge(res_f.q, res_s.q),
-                is_full)
+                is_full, carry)
 
     def _resolve_nobles(self, bundle, states_mid, adv, gen):
         """Boards whose move left a pending noble choice (``adv == 0``) pick
@@ -182,10 +215,12 @@ class SelfPlayEngine:
         results = torch.zeros((B, n), dtype=torch.float32, device=dev)
         collected = []
         total_moves = total_sims = 0
+        carry = self.rs_full.init_tree(states) if cfg.tree_reuse else None
 
         for move in range(n_moves):
             valids = self.valid_fn(states)
-            counts, q, is_full = self._search(params_bundle, states, done, gen)
+            counts, q, is_full, carry = self._search(params_bundle, states,
+                                                     done, gen, carry)
             temp = cfg.temp_early if move < cfg.temp_threshold else cfg.temp_late
             actions = sample_actions(counts, temp,
                                      gumbel_noise(counts.shape, gen, dev))
@@ -203,6 +238,10 @@ class SelfPlayEngine:
             ends = torch.roll(E.check_end_game(ecfg, states2), offset2, 1)
             newly = ends.any(1) & ~done
             results = torch.where(newly[:, None], ends, results)
+            if carry is not None:
+                # a board whose real chance draw (or noble choice) left the
+                # tree fails reroot's state match and restarts fresh
+                carry = self.rs_full.reroot(carry[0], actions, states2)
 
             alive = (~done).cpu().numpy()
             full = is_full.cpu().numpy()

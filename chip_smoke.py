@@ -32,6 +32,23 @@ Phases (each raises on failure):
    the coach's search shapes exactly to the plain version on the stats and
    arguments each was given, and checks that the checkpoint written on the
    card loads on the CPU with the card's forward;
+8. reuse: a reusing search at B=1024, 64 sims (capacity 129), r6, for 4
+   moves (search, argmax, in-tree next state, reroot), checked (up to 12
+   backup launches per move, with their per-board slots, held exactly to
+   the plain version; one move's reroot equal on the card and the CPU)
+   and then timed (ms per run beside a fresh search of the same roots,
+   reroot host and device ms, kept nodes, descent levels); self-play with
+   ``tree_reuse=True`` at phase 4's shape, first 4 checked moves (a spread
+   of backup launches at each of its shapes, capacity 257, held exactly to
+   the plain version), then 12 timed ones (rollouts/s, hit share, masked
+   root visits, peak memory; phase 4 ran the fresh actor in the same
+   call); the training CLI's ``main`` with ``--tree-reuse`` on the card,
+   its backups checked the same way;
+9. pit: ``cli.pit runs/r6/best.pt greedy --batched -n 4 -m 16``, then a
+   batched tournament of r6 and the coach phase's ``temp.pt`` with a
+   ratings book, their backups checked the same way;
+phases 4, 7, 8 and 9 assert one backup launch per simulation their
+searches ran;
 then one JSON line with every kernel's launches, error and times, and the
 last line ``{"ok": true, "device": {...}}``.  It exits non-zero, printing
 no result, when there is no CUDA device.  With ``--out``, the full
@@ -41,11 +58,14 @@ measurements are also written to that JSON file.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import logging
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -158,17 +178,16 @@ def _made_up_entry_args(B, M, A, S1, P, g, dev, slot):
     stats = torch.randn((B, M, 4, A + 2), generator=g, device=dev)
     if slot == "per_board":
         slot = ri(1, M, B, dtype=torch.int32)
-        slots = slot.long()
-    else:
-        slots = torch.full((B,), slot, device=dev)
+    else:                                              # one slot on all boards
+        slot = torch.full((B,), slot, dtype=torch.int32, device=dev)
     path_p = ri(0, M + 1, B, S1, dtype=torch.int32)
     path_p[:, 1::3] = path_p[:, 0:S1 - 1:3]            # repeats of p
-    path_p[::2, 2] = slots[::2].int()                  # a live p == slot
-    path_p[::4, S1 - 1] = slots[::4].int()             # ... in the last chunk
+    path_p[::2, 2] = slot[::2]                         # a live p == slot
+    path_p[::4, S1 - 1] = slot[::4]                    # ... in the last chunk
     depth = ri(0, S1 + 1, B, dtype=torch.int32)
     depth[::4] = S1
     parent = ri(0, M, B)
-    parent[::3] = slots[::3]                           # child into the row
+    parent[::3] = slot[::3]                            # child into the row
     return (stats, path_p, ri(0, A, B, S1, dtype=torch.int32),
             ri(0, P, B, S1, dtype=torch.int32), depth,
             torch.randn((B, P), generator=g, device=dev), ri(0, P, B),
@@ -305,12 +324,12 @@ def _entry_work(stats, *raw):
     """``(bytes, adds)`` that one ``backprop_packed`` needs at least: the
     per-board scalars, value_vec, term_vec and pvalid_new read in full, the
     three path arrays only at live levels, parent and action only where a
-    child is installed, and every stats element that receives a term read
-    and written once.  The slot is a launch argument."""
+    child is installed, every stats element that receives a term read and
+    written once, and the per-board slot."""
     import torch
     B, A, P = stats.shape[0], stats.shape[3] - 2, raw[4].shape[1]
     idx, _, live, inst = _entry_touched(stats, *raw)
-    per_board = 4 + 8 + 1 + 1 + 8 + 4 + 2 * 4 * P + 4 * A
+    per_board = 4 + 8 + 1 + 1 + 8 + 4 + 2 * 4 * P + 4 * A + 4
     nbytes = (B * per_board + live * 12 + inst * 16
               + torch.unique(idx).numel() * 8)
     return nbytes, idx.numel() + B * A
@@ -639,32 +658,104 @@ def phase_search(reps=5):
             "operand_building": {"profile": prof_ops}}
 
 
-def phase_selfplay():
-    import torch
+class _MaskedVisits(logging.Handler):
+    """Counts the root visits the self-play actor's backstop masked (its
+    "masking N root visits" warning)."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.visits = 0
+
+    def emit(self, record):
+        if record.getMessage().startswith("masking"):
+            self.visits += int(record.args[0])
+
+
+def _selfplay_engine(tree_reuse, moves):
+    """The self-play actor at B=256, 128 sims, PCR 4 / 0.25 and forced
+    playouts, for ``moves`` moves."""
     from alphazero_tpu_torch.games.splendor import adapter as A
+    from alphazero_tpu_torch.games.splendor import env as E
+    from alphazero_tpu_torch.train import selfplay as SP
+    cfg = E.SplendorConfig(num_players=2)
+    sp = SP.SelfPlayConfig(batch_size=256, num_sims=128, ratio_full=4,
+                           prob_full=0.25, temp_threshold=10,
+                           forced_playouts=True, max_moves=moves,
+                           chunk_moves=moves, tree_reuse=tree_reuse)
+    return cfg, SP.SelfPlayEngine(cfg, A.make_eval_fn(A.net_config_for(cfg)),
+                                  sp, device="cuda")
+
+
+def _check_reuse_selfplay(net, moves=4):
+    """Self-play with ``tree_reuse=True`` for ``moves`` moves, its searches'
+    backups recorded (a spread of launches at each shape, per-board slots
+    from the second move on) and held exactly to the plain version; one
+    launch per simulation.  Returns the largest difference."""
+    import torch
+    from alphazero_tpu_torch.ops import fused_backup as FB
+    samples, sims = {}, [0]
+    with _checked_path(sims, samples) as calls:
+        _, eng = _selfplay_engine(True, moves)
+        FB.fused_backup.launches = 0
+        eng.run_games(net, torch.Generator(device="cuda").manual_seed(2))
+        _sync()
+        launches = FB.fused_backup.launches
+    if launches != sims[0]:
+        raise AssertionError(f"reuse self-play: {launches} backup launches "
+                             f"for {sims[0]} simulations")
+    err, differing = _check_recorded(samples, calls, "reuse self-play")
+    if differing == 0:
+        raise AssertionError("no recorded reuse self-play backup had slots "
+                             "that differ across boards")
+    return err
+
+
+def phase_selfplay(tree_reuse=False):
+    """The self-play actor at B=256, 128 sims, PCR 4 / 0.25 and forced
+    playouts for 12 moves with the r6 net: rollouts/s, examples, launches
+    (one per simulation its searches ran), masked root visits and peak
+    device memory; with ``tree_reuse``, first a checked 4-move run
+    (``_check_reuse_selfplay``), and the share of reroots (boards x moves)
+    that kept more than the root."""
+    import torch
     from alphazero_tpu_torch.games.splendor import env as E
     from alphazero_tpu_torch.ops import fused_backup as FB
     from alphazero_tpu_torch.train import selfplay as SP
-    cfg = E.SplendorConfig(num_players=2)
-    net = _r6_net(cfg, "cuda")
-    sp = SP.SelfPlayConfig(batch_size=256, num_sims=128, ratio_full=4,
-                           prob_full=0.25, temp_threshold=10,
-                           forced_playouts=True, max_moves=12,
-                           chunk_moves=12)
-    eng = SP.SelfPlayEngine(cfg, A.make_eval_fn(A.net_config_for(cfg)), sp,
-                            device="cuda")
-    FB.fused_backup.launches = 0
-    _sync()
-    t0 = time.perf_counter()
-    it, stats = eng.run_games(net, torch.Generator(device="cuda")
-                              .manual_seed(2))
-    _sync()
-    dt = time.perf_counter() - t0
-    launches = FB.fused_backup.launches
     moves = 12                       # no 2-player game ends within 12 moves
-    if launches != moves * (sp.num_sims + eng.fast_sims):
-        raise AssertionError(f"backup kernel launched {launches} times in "
-                             f"{moves} moves")
+    net = _r6_net(E.SplendorConfig(num_players=2), "cuda")
+    backup_err = _check_reuse_selfplay(net) if tree_reuse else 0.0
+    sims, hits = [0], []
+    with _checked_path(sims):
+        cfg, eng = _selfplay_engine(tree_reuse, moves)
+    if tree_reuse:
+        reroot = eng.rs_full.reroot
+
+        def counted(*args):
+            tree, n = reroot(*args)
+            hits.append((n > 1).sum())
+            return tree, n
+        eng.rs_full = eng.rs_full._replace(reroot=counted)
+    masked = _MaskedVisits()
+    SP.log.addHandler(masked)
+    try:
+        FB.fused_backup.launches = 0
+        _sync()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        it, stats = eng.run_games(net, torch.Generator(device="cuda")
+                                  .manual_seed(2))
+        _sync()
+        dt = time.perf_counter() - t0
+        launches = FB.fused_backup.launches
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        SP.log.removeHandler(masked)
+    if launches != sims[0]:
+        raise AssertionError(f"backup kernel launched {launches} times for "
+                             f"{sims[0]} simulations in {moves} moves")
+    if masked.visits:
+        raise AssertionError(f"{masked.visits} root visits on invalid "
+                             f"actions were masked")
     n = len(it)
     if n != moves * eng.b_full or stats["examples"] != n:
         raise AssertionError(f"{n} examples, expected {moves * eng.b_full}")
@@ -674,11 +765,24 @@ def phase_selfplay():
                              "valid actions")
     if it.boards.shape != (n, cfg.rows, 7) or it.winner.shape != (n, 2):
         raise AssertionError("Iteration shapes")
-    rps = stats["rollouts"] / dt
-    print(f"self-play B=256 S=128 PCR: {rps:.1f} rollouts/s, {n} examples in "
-          f"{dt:.2f} s; backup launches {launches}", flush=True)
-    return {"rollouts_per_s": rps, "seconds": dt, "examples": n,
-            "rollouts": stats["rollouts"], "launches": launches}, it
+    rec = {"rollouts_per_s": stats["rollouts"] / dt, "seconds": dt,
+           "examples": n, "rollouts": stats["rollouts"], "launches": launches,
+           "simulations": sims[0], "masked_visits": masked.visits,
+           "peak_bytes": peak, "backup_max_abs_err": backup_err}
+    if tree_reuse:
+        B = eng.cfg.batch_size
+        rec["hit_share"] = int(sum(hits)) / (moves * B)
+        if len(hits) != moves or rec["hit_share"] <= 0:
+            raise AssertionError(f"{len(hits)} reroots, hit share "
+                                 f"{rec['hit_share']}")
+    print(f"self-play B=256 S=128 PCR{' tree reuse' if tree_reuse else ''}: "
+          f"{rec['rollouts_per_s']:.1f} rollouts/s, {n} examples in "
+          f"{dt:.2f} s; backup launches {launches} = simulations {sims[0]}; "
+          f"masked root visits {masked.visits}; peak memory "
+          f"{peak / 2**30:.3f} GiB"
+          + (f"; reuse hit share {rec['hit_share']:.4f}" if tree_reuse
+             else ""), flush=True)
+    return rec, it
 
 
 def _r6_train_state(net_cfg, device):
@@ -823,36 +927,73 @@ def _recording_backup(samples, first=4, every=32, cap=12):
     return record, calls
 
 
-def _check_recorded(samples, calls):
+def _check_recorded(samples, calls, what):
     """The kept backups of ``_recording_backup`` against the plain version
-    on the stats and arguments each call was given; returns the largest
-    difference and raises unless it is 0."""
+    on the stats and arguments each call was given, printed per shape under
+    ``what``.  Returns the largest difference and the number of kept calls
+    whose slots differ across boards; raises unless the difference is 0."""
     import torch
     from alphazero_tpu_torch.ops import fused_backup as FB
-    worst = 0.0
+    worst, differing = 0.0, 0
     for key, kept in sorted(samples.items()):
-        err = 0.0
+        err, diff = 0.0, 0
         for before, raw, got in kept:
             want = FB.backprop_packed_plain(before.clone(), *raw)
             if not torch.equal(got, want):
                 err = max(err, (got - want).abs().max().item())
-        print(f"fused_backup entry in the coach's searches, B={key[0]} "
-              f"M={key[1]} S1={key[2]}: {len(kept)} of {calls[key] + 1} sims "
-              f"held to plain, max |kernel - plain| = {err:.3g}", flush=True)
+            diff += bool((raw[9] != raw[9][0]).any())
+        print(f"fused_backup entry in {what}, B={key[0]} M={key[1]} "
+              f"S1={key[2]}: {len(kept)} of {calls[key] + 1} sims held to "
+              f"plain ({diff} with slots that differ across boards), max "
+              f"|kernel - plain| = {err:.3g}", flush=True)
         worst = max(worst, err)
+        differing += diff
     if worst != 0.0:
-        raise AssertionError(f"the coach's backups disagree: {worst}")
-    return worst
+        raise AssertionError(f"the backups of {what} disagree: {worst}")
+    return worst, differing
 
 
-def phase_coach():
-    """One ``Coach.learn`` iteration on the card from the r6 weights."""
-    import tempfile
+@contextlib.contextmanager
+def _checked_path(sims, samples=None):
+    """While open, every search that ``mcts.build_search`` or
+    ``mcts.build_reusing_search`` builds adds its ``num_sims`` to
+    ``sims[0]`` on each call; with ``samples``, the searches' backup is
+    ``_recording_backup``'s.  Yields the recorder's call counts."""
+    from alphazero_tpu_torch.ops import fused_backup as FB
+    from alphazero_tpu_torch.search import mcts as M
+    build, build_rs = M.build_search, M.build_reusing_search
+
+    def counted(fn, n):
+        def run(*a, **kw):
+            sims[0] += n
+            return fn(*a, **kw)
+        return run
+
+    def build_counted(mcfg, *a, **kw):
+        return counted(build(mcfg, *a, **kw), mcfg.num_sims)
+
+    def build_rs_counted(mcfg, *a, **kw):
+        rs = build_rs(mcfg, *a, **kw)
+        return rs._replace(run=counted(rs.run, mcfg.num_sims))
+    calls = {}
+    if samples is not None:
+        M.backprop_packed, calls = _recording_backup(samples)
+    M.build_search, M.build_reusing_search = build_counted, build_rs_counted
+    try:
+        yield calls
+    finally:
+        M.build_search, M.build_reusing_search = build, build_rs
+        M.backprop_packed = FB.backprop_packed
+
+
+def phase_coach(keep_dir):
+    """One ``Coach.learn`` iteration on the card from the r6 weights; its
+    ``temp.pt`` is copied into ``keep_dir``."""
+    import shutil
     import numpy as np
     import torch
     from alphazero_tpu_torch.models import splendor_net as N
     from alphazero_tpu_torch.ops import fused_backup as FB
-    from alphazero_tpu_torch.search import mcts as M
     from alphazero_tpu_torch.train.coach import Coach, CoachConfig
     from alphazero_tpu_torch.utils import checkpoint as C
     with tempfile.TemporaryDirectory() as tmp:
@@ -861,21 +1002,7 @@ def phase_coach():
                           prob_full=0.25, forced_playouts=True,
                           arena_games=8, gate_num_sims=16, batch_size=64,
                           train_chunk_steps=8, checkpoint_dir=tmp, seed=0)
-        coach = Coach(cfg, device="cuda")
-        coach.load_checkpoint(os.path.join(ROOT, "runs", "r6"), "best.pt",
-                              load_examples=False)
-        sims, stage = [0], {}
-
-        def counted(search, n):              # simulations, at the search
-            def run(*a, **kw):
-                sims[0] += n
-                return search(*a, **kw)
-            return run
-        eng = coach.selfplay
-        eng.search_full = counted(eng.search_full, cfg.num_sims)
-        eng.search_fast = counted(eng.search_fast, eng.fast_sims)
-        coach._gate_match.search = counted(coach.gate_search,
-                                           cfg.gate_num_sims)
+        sims, stage, seen, samples = [0], {}, {}, {}
 
         def timed(name, fn):
             def run(*a, **kw):
@@ -886,23 +1013,22 @@ def phase_coach():
                 stage[name] = time.perf_counter() - t0
                 return out
             return run
-        for name in ("self_play_iteration", "train_iteration", "gate"):
-            setattr(coach, name, timed(name, getattr(coach, name)))
-        seen, samples = {}, {}
-        M.backprop_packed, calls = _recording_backup(samples)
-        try:
+        with _checked_path(sims, samples) as calls:
+            coach = Coach(cfg, device="cuda")
+            coach.load_checkpoint(os.path.join(ROOT, "runs", "r6"), "best.pt",
+                                  load_examples=False)
+            for name in ("self_play_iteration", "train_iteration", "gate"):
+                setattr(coach, name, timed(name, getattr(coach, name)))
             FB.fused_backup.launches = 0
             coach.learn(on_iteration=lambda it, sp, m, g, acc: seen.update(
                 sp=sp, metrics=m, gate=g, accept=acc))
             _sync()
             launches = FB.fused_backup.launches
-        finally:
-            M.backprop_packed = FB.backprop_packed
         if launches != sims[0]:
             raise AssertionError(f"backup kernel launched {launches} times for "
                                  f"{sims[0]} simulations")
         # the kernel at the coach's own shapes, against its plain version
-        backup_err = _check_recorded(samples, calls)
+        backup_err, _ = _check_recorded(samples, calls, "the coach's searches")
         del samples
         nw, ow, dr = seen["gate"]
         if nw + ow + dr != cfg.arena_games or not np.isfinite(
@@ -924,6 +1050,7 @@ def phase_coach():
                  <= 1e-5 + 2e-6 * cpu[2].abs()).all()
         if max(errs[:2]) > 1e-5 or not bool(sd_ok):
             raise AssertionError(f"{name}: card vs CPU forward {errs}")
+        shutil.copy(os.path.join(tmp, "temp.pt"), keep_dir)
     sp = seen["sp"]
     rec = {"stage_seconds": stage, "examples": sp["examples"],
            "games": sp["games"], "rollouts": sp["rollouts"],
@@ -943,6 +1070,284 @@ def phase_coach():
           f"{launches} = simulations {sims[0]}; {name} on the CPU: forward "
           f"|card - cpu| {max(errs):.3g}", flush=True)
     return rec
+
+
+def _reuse_moves(rs, net, roots, moves, record=None, on_reroot=None):
+    """``moves`` moves of a reusing search from fresh trees at ``roots``:
+    run, argmax action, its in-tree next state, reroot.  ``record`` wraps
+    the search's backup; ``on_reroot(move, tree, actions, next_states)``
+    may time or check a reroot (it must not change the tree).  Returns the
+    per-move n_kept and run seconds."""
+    import torch
+    from alphazero_tpu_torch.games.splendor import adapter as A
+    from alphazero_tpu_torch.games.splendor import env as E
+    from alphazero_tpu_torch.ops import fused_backup as FB
+    from alphazero_tpu_torch.search import mcts as M
+    step_fn = A.make_search_step_fn(E.SplendorConfig(num_players=2))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tree, n = rs.init_tree(roots)
+    kept, run_s = [], []
+    if record is not None:
+        M.backprop_packed = record
+    try:
+        for move in range(moves):
+            _sync()
+            t0 = time.perf_counter()
+            res, tree, n = rs.run(net, tree, n, generator=g)
+            _sync()
+            run_s.append(time.perf_counter() - t0)
+            actions = torch.argmax(res.counts, -1)
+            nxt = step_fn(tree.states[:, 0], actions)[0]
+            if on_reroot is not None:
+                on_reroot(move, tree, actions, nxt)
+            tree, n = rs.reroot(tree, actions, nxt)
+            kept.append(n)
+    finally:
+        M.backprop_packed = FB.backprop_packed
+    return torch.stack(kept), run_s
+
+
+def phase_reuse():
+    """Tree reuse at full width: the reusing search and reroot, self-play
+    with reuse, and the training CLI with ``--tree-reuse``."""
+    import torch
+    from alphazero_tpu_torch.games.splendor import adapter as A
+    from alphazero_tpu_torch.games.splendor import env as E
+    from alphazero_tpu_torch.ops import fused_backup as FB
+    from alphazero_tpu_torch.search import mcts as M
+    B, S, moves = 1024, 64, 4
+    cfg = E.SplendorConfig(num_players=2)
+    net = _r6_net(cfg, "cuda")
+    fns = (A.make_eval_fn(A.net_config_for(cfg)), A.make_search_step_fn(cfg),
+           A.make_valid_fn(cfg))
+    mcfg = M.MCTSConfig(num_sims=S, add_noise=True, dirichlet_alpha=0.2,
+                        prior_temp=1.25)
+    rs = M.build_reusing_search(mcfg, 2, *fns, device="cuda")
+    fresh = M.build_search(mcfg, 2, *fns, device="cuda")
+    roots = E.initial_state(cfg, B, torch.Generator(device="cuda")
+                            .manual_seed(1), device="cuda")
+
+    # checked pass: up to 12 backups per move (the first 4, then every 8th)
+    # held to the plain version on the stats and per-board slots each was
+    # given, the descent's levels summed, and the second move's reroot
+    # done again on the CPU
+    calls, checked, worst, depth_sum, differing = [0], [0], [0.0], [], [0]
+
+    def record(stats, *args):
+        i = calls[0] % S
+        calls[0] += 1
+        depth_sum.append(args[3].sum())
+        if not (i < 4 or i % 8 == 0):
+            return FB.backprop_packed(stats, *args)
+        checked[0] += 1
+        before = stats.clone()
+        out = FB.backprop_packed(stats, *args)
+        want = FB.backprop_packed_plain(before, *args)
+        differing[0] += bool((args[9] != args[9][0]).any())
+        if not torch.equal(out, want):
+            worst[0] = max(worst[0], (out - want).abs().max().item())
+        return out
+
+    cpu_check = {}
+
+    def on_reroot(move, tree, actions, nxt):
+        if move != 1:
+            return
+        t0 = time.perf_counter()
+        card = rs.reroot(tree, actions, nxt)
+        cpu = rs.reroot(M.Tree(*(t.cpu() for t in tree)), actions.cpu(),
+                        nxt.cpu())
+        cpu_check["equal"] = all(
+            torch.equal(a.cpu(), b) for a, b in zip((*card[0], card[1]),
+                                                    (*cpu[0], cpu[1])))
+        cpu_check["seconds"] = time.perf_counter() - t0
+
+    FB.fused_backup.launches = 0
+    kept, _ = _reuse_moves(rs, net, roots, moves, record, on_reroot)
+    _sync()
+    checked_launches = FB.fused_backup.launches
+    if checked_launches != moves * S or calls[0] != moves * S:
+        raise AssertionError(f"{checked_launches} backup launches for "
+                             f"{moves * S} simulations")
+    if worst[0] != 0.0 or differing[0] == 0:
+        raise AssertionError(f"reusing search backups: max |kernel - plain| "
+                             f"= {worst[0]}, {differing[0]} with slots that "
+                             f"differ across boards")
+    if not cpu_check.get("equal"):
+        raise AssertionError("reroot on the card differs from the CPU's")
+    levels = torch.stack(depth_sum).float().view(moves, S).sum(1) / (B * S)
+    print(f"reuse B={B} S={S} (capacity {rs.capacity}): fused_backup with "
+          f"per-board slot tensors: max |kernel - plain| = {worst[0]:.3g} "
+          f"over {checked[0]} recorded launches ({differing[0]} with slots "
+          f"that differ across boards); move 2's reroot card == CPU "
+          f"({cpu_check['seconds']:.2f} s)", flush=True)
+
+    # timed pass, the same computation without the checks; after each run
+    # a fresh search of the same roots is timed beside it
+    reroots, fresh_s = [], []
+    g_fresh = torch.Generator(device="cuda").manual_seed(3)
+
+    def timed_reroot(move, tree, actions, nxt):
+        roots_m = tree.states[:, 0].clone()
+        _sync()
+        t0 = time.perf_counter()
+        fresh(net, roots_m, generator=g_fresh)
+        _sync()
+        fresh_s.append(time.perf_counter() - t0)
+        host_ms = _time_host_ms(lambda: rs.reroot(tree, actions, nxt), reps=3)
+        prof = _profile(lambda: rs.reroot(tree, actions, nxt))
+        reroots.append({"host_ms": host_ms,
+                        "device_busy_ms": prof["device_busy_ms"],
+                        "kernels": prof["kernel_launches"]})
+
+    FB.fused_backup.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    kept2, run_s = _reuse_moves(rs, net, roots, moves,
+                                on_reroot=timed_reroot)
+    _sync()
+    launches = FB.fused_backup.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches != 2 * moves * S or not torch.equal(kept, kept2):
+        raise AssertionError(f"timed pass: {launches} launches, n_kept "
+                             f"{kept2.tolist()} vs {kept.tolist()}")
+    per_move = []
+    for m in range(moves):
+        k = kept[m].float()
+        per_move.append({
+            "run_ms": run_s[m] * 1e3, "ms_per_sim": run_s[m] * 1e3 / S,
+            "fresh_ms_per_sim": fresh_s[m] * 1e3 / S,
+            **{f"reroot_{k_}": v for k_, v in reroots[m].items()},
+            "kept_share": (k > 1).float().mean().item(),
+            "kept_mean": k.mean().item(), "descent_levels": levels[m].item()})
+        r = per_move[-1]
+        print(f"reuse move {m + 1}: run {r['run_ms']:.1f} ms "
+              f"({r['ms_per_sim']:.2f} ms/sim; a fresh search of the same "
+              f"roots {r['fresh_ms_per_sim']:.2f}); reroot host "
+              f"{r['reroot_host_ms']:.2f} ms, device "
+              f"{r['reroot_device_busy_ms']} ms, {r['reroot_kernels']} "
+              f"kernels; boards keeping > 1 node {r['kept_share']:.4f}, mean "
+              f"n_kept {r['kept_mean']:.2f}; descent mean levels "
+              f"{r['descent_levels']:.3f}", flush=True)
+    carried_ms = statistics.median(run_s[1:]) * 1e3
+    fresh_ms = statistics.median(fresh_s[1:]) * 1e3
+    ratio = statistics.median(a / b for a, b in zip(run_s[1:], fresh_s[1:]))
+    print(f"reuse search: {carried_ms / S:.2f} ms/sim on carried trees vs "
+          f"{fresh_ms / S:.2f} fresh on the same roots (medians of moves "
+          f"2-{moves}; median ratio {ratio:.3f}); backup launches {launches} "
+          f"= simulations of both; peak memory {peak / 2**30:.3f} GiB",
+          flush=True)
+    capacity = rs.capacity
+    del rs, fresh, net, roots, kept, kept2
+    torch.cuda.empty_cache()
+
+    selfplay, _ = phase_selfplay(tree_reuse=True)
+    cli = _reuse_cli()
+    return {"batch": B, "sims": S, "capacity": capacity,
+            "moves": per_move, "carried_ms_per_sim": carried_ms / S,
+            "fresh_ms_per_sim": fresh_ms / S, "carried_over_fresh": ratio,
+            "launches": launches + selfplay["launches"] + cli["launches"],
+            "max_abs_err": max(worst[0], selfplay["backup_max_abs_err"],
+                               cli["backup_max_abs_err"]),
+            "reroot_cpu_equal": True,
+            "reroot_cpu_check_s": cpu_check["seconds"], "peak_bytes": peak,
+            "selfplay": selfplay, "cli": cli}
+
+
+class _IterLines(logging.Handler):
+    """Keeps the messages of the coach's first iteration."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        if record.getMessage().startswith("Iter 1: "):
+            self.lines.append(record.getMessage())
+
+
+def _reuse_cli():
+    """The training CLI's ``main`` with ``--tree-reuse`` on the card (the
+    verify skill's CPU sizes), as ``python -m alphazero_tpu_torch.cli.main``
+    runs it, in this process so that its searches' backups are counted
+    against their simulations and a spread of them is held to the plain
+    version at its shapes."""
+    from alphazero_tpu_torch.cli import main as CLI
+    from alphazero_tpu_torch.ops import fused_backup as FB
+    from alphazero_tpu_torch.train import coach as CO
+    samples, sims, iter_lines = {}, [0], _IterLines()
+    level = CO.log.level
+    CO.log.setLevel(logging.INFO)
+    CO.log.addHandler(iter_lines)
+    try:
+        with tempfile.TemporaryDirectory() as tmp, \
+                _checked_path(sims, samples) as calls:
+            FB.fused_backup.launches = 0
+            t0 = time.perf_counter()
+            CLI.main(["-n", "1", "-e", "4", "--selfplayBatch", "4", "-m", "8",
+                      "--arenaCompare", "4", "--gate-sims", "4", "-b", "16",
+                      "-p", "1", "-C", tmp, "--tree-reuse"])
+            _sync()
+            cli_s = time.perf_counter() - t0
+            launches = FB.fused_backup.launches
+    finally:
+        CO.log.removeHandler(iter_lines)
+        CO.log.setLevel(level)
+    lines = iter_lines.lines
+    if not any("ACCEPTED" in ln or "REJECTED" in ln for ln in lines):
+        raise AssertionError(f"cli.main --tree-reuse logged {lines}")
+    if launches != sims[0]:
+        raise AssertionError(f"cli.main --tree-reuse: {launches} backup "
+                             f"launches for {sims[0]} simulations")
+    err, _ = _check_recorded(samples, calls, "cli.main --tree-reuse")
+    print(f"cli.main --tree-reuse on the card: {cli_s:.1f} s; backup "
+          f"launches {launches} = simulations {sims[0]}; "
+          + "; ".join(ln[len("Iter 1: "):][:80] for ln in lines), flush=True)
+    return {"seconds": cli_s, "log": lines, "launches": launches,
+            "simulations": sims[0], "backup_max_abs_err": err}
+
+
+def phase_pit(coach_temp):
+    """The batched pit CLI on the card: r6 against greedy, then a
+    tournament of r6's ``best.pt`` and the coach phase's ``temp.pt`` with a
+    Glicko-2 book."""
+    import shutil
+    from alphazero_tpu_torch.cli import pit as PIT
+    from alphazero_tpu_torch.ops import fused_backup as FB
+    r6 = os.path.join(ROOT, "runs", "r6", "best.pt")
+    samples, sims = {}, [0]
+    with tempfile.TemporaryDirectory() as tmp, \
+            _checked_path(sims, samples) as calls:
+        FB.fused_backup.launches = 0
+        t0 = time.perf_counter()
+        out = PIT.main([r6, "greedy", "--batched", "-n", "4", "-m", "16"])
+        pair_s = time.perf_counter() - t0
+        for name, src in (("r6", r6), ("coach", coach_temp)):
+            os.makedirs(os.path.join(tmp, name))
+            shutil.copy(src, os.path.join(tmp, name, "best.pt"))
+        t0 = time.perf_counter()
+        book = PIT.main(["--batched", "--tournament", tmp, "-n", "2", "-m",
+                         "8", "--ratings", os.path.join(tmp, "ratings.json")])
+        tour_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "ratings.json")) as f:
+            saved = json.load(f)
+        _sync()
+        launches = FB.fused_backup.launches
+    if out["games"] != 4 or out["wins"] + out["losses"] + out["draws"] != 4:
+        raise AssertionError(f"pit record {out}")
+    ratings = {k: vars(v) for k, v in book.ratings.items()}
+    if sorted(saved) != ["coach/best.pt", "r6/best.pt"] or saved != ratings:
+        raise AssertionError(f"tournament book {saved}")
+    if launches != sims[0] or launches == 0:
+        raise AssertionError(f"pit: {launches} backup launches for "
+                             f"{sims[0]} simulations")
+    err, _ = _check_recorded(samples, calls, "the pit's searches")
+    print(f"pit: r6 vs greedy {out['wins']}-{out['losses']} "
+          f"({out['draws']} draws) in {pair_s:.1f} s; tournament in "
+          f"{tour_s:.1f} s; backup launches {launches} = simulations "
+          f"{sims[0]}", flush=True)
+    return {"pair": out, "pair_seconds": pair_s, "tournament_seconds": tour_s,
+            "ratings": ratings, "launches": launches, "simulations": sims[0],
+            "backup_max_abs_err": err}
 
 
 def phase_reference():
@@ -1000,9 +1405,12 @@ def main(argv=None) -> int:
     t_kernels = time.perf_counter() - t0
     search = phase_search()
     selfplay, examples = phase_selfplay()
+    reuse = phase_reuse()
     reference = phase_reference()
     train = phase_train(examples)
-    coach = phase_coach()
+    with tempfile.TemporaryDirectory() as keep:
+        coach = phase_coach(keep)
+        pit = phase_pit(os.path.join(keep, "temp.pt"))
     total_s = time.perf_counter() - t0
     print(f"kernel phase {t_kernels:.0f} s of {total_s:.0f} s", flush=True)
 
@@ -1012,15 +1420,18 @@ def main(argv=None) -> int:
         "source": "alphazero_tpu_torch/ops/csrc/fused_backup.cu",
         "replaces": "alphazero_tpu/ops/fused_backup.py:118",
         "launches": (search["launches"] + selfplay["launches"]
-                     + coach["launches"]),
-        "max_abs_err": max(kb["max_abs_err"], coach["backup_max_abs_err"]),
+                     + coach["launches"] + reuse["launches"]
+                     + pit["launches"]),
+        "max_abs_err": max(kb["max_abs_err"], coach["backup_max_abs_err"],
+                           reuse["max_abs_err"], pit["backup_max_abs_err"]),
         "ms": kb["ms"],
         "plain_ms": kb["plain_ms"], "bound_ms": kb["bound_ms"],
         "bound_by": kb["bound_by"], "library_ms": kb["library_ms"]}]}
     record = {"card": smi, "build_s": build_s, "seconds": total_s,
               "kernels": kernels,
-              "search": search, "selfplay": selfplay, "reference": reference,
-              "train": train, "coach": coach,
+              "search": search, "selfplay": selfplay, "reuse": reuse,
+              "reference": reference, "train": train, "coach": coach,
+              "pit": pit,
               "torch": torch.__version__, "cuda": torch.version.cuda}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

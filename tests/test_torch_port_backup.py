@@ -29,7 +29,6 @@ def _sequential(stats, path_p, path_a, w, child_p, child_a, child_v, pv,
     """One board and one level at a time, in level order."""
     B, Mx, _, A = stats.shape
     ref = stats.copy()
-    slots = np.broadcast_to(np.asarray(slot), (B,))
     for b in range(B):
         for s in range(path_p.shape[1]):
             if path_p[b, s] < Mx:
@@ -37,7 +36,7 @@ def _sequential(stats, path_p, path_a, w, child_p, child_a, child_v, pv,
                 ref[b, path_p[b, s], 3, path_a[b, s]] += w[b, s, 1]
         if child_v[b] != 0:
             ref[b, child_p[b], 1, child_a[b]] += child_v[b]
-        ref[b, slots[b], 0, :] += pv[b]
+        ref[b, slot[b], 0, :] += pv[b]
     return ref
 
 
@@ -61,13 +60,14 @@ def _split_inputs(seed, B=16, Mx=9, A=57, S1=7):
 
 @pytest.mark.parametrize("slot", ["scalar", "per_board"])
 def test_split_contract(slot):
+    """``scalar``: one slot on every board; ``per_board``: a slot each."""
     args = _split_inputs(0 if slot == "scalar" else 1)
     B, Mx = args[0].shape[:2]
-    slot_np = (3 if slot == "scalar" else
+    slot_np = (np.full(B, 3, np.int32) if slot == "scalar" else
                np.random.default_rng(2).integers(0, Mx, B).astype(np.int32))
     ref = _sequential(*args, slot_np)
     t_args = [torch.from_numpy(a.copy()) for a in args]
-    t_slot = slot_np if isinstance(slot_np, int) else torch.from_numpy(slot_np)
+    t_slot = torch.from_numpy(slot_np)
     out = FB.fused_backup(*t_args, t_slot).numpy()
     np.testing.assert_array_equal(out, ref)
     # the row may also come as [B, 1, C]
@@ -84,18 +84,24 @@ def test_split_contract(slot):
 
 def test_wrapper_checks_operands():
     args = [torch.from_numpy(a) for a in _split_inputs(3)]
+    B, Mx = args[0].shape[:2]
+    slot = torch.zeros(B, dtype=torch.int32)
     bad = list(args)
     bad[1] = bad[1].to(torch.int64)
     with pytest.raises(ValueError, match="path_p"):
-        FB.fused_backup(*bad, 0)
+        FB.fused_backup(*bad, slot)
     with pytest.raises(ValueError, match="node_col"):
-        FB.fused_backup(*args, 0, node_col=args[0].shape[3])
+        FB.fused_backup(*args, slot, node_col=args[0].shape[3])
     bad = list(args)
-    bad[-1] = torch.zeros(args[0].shape[0], 2, args[0].shape[3])
+    bad[-1] = torch.zeros(B, 2, args[0].shape[3])
     with pytest.raises(ValueError, match="row"):
-        FB.fused_backup(*bad, 0)
+        FB.fused_backup(*bad, slot)
+    # the slot is an int32 [B] tensor inside [0, M)
+    for bad_slot in (0, slot.long(), slot[:-1], torch.full_like(slot, Mx)):
+        with pytest.raises(ValueError, match="slot"):
+            FB.fused_backup(*args, bad_slot)
     launches = FB.fused_backup.launches
-    FB.fused_backup(*args, 0)
+    FB.fused_backup(*args, slot)
     assert FB.fused_backup.launches == launches   # CPU: plain version only
 
 
@@ -117,7 +123,7 @@ def test_packed_contract_matches_jax(num_players):
     # the tree is full (S sims); back up one more sim into a grown copy
     tree = JM._grow_tree(tree, Mx + 1)
     PL = Mx - 1
-    slot = S + 1
+    slot = np.full(B, S + 1, np.int32)
     rng = np.random.default_rng(num_players)
     # random values, priors and terminal flags so every lane is exercised
     term_np = np.where(rng.random((B, 1)) < 0.5,
@@ -142,7 +148,7 @@ def test_packed_contract_matches_jax(num_players):
                                  child_valid)
         stats = JM._backprop_fused(
             tree, path_p, path_a, path_r, depth, values, leaf_rot, parent,
-            action, fresh, jnp.full((B,), slot, jnp.int32), pvalid,
+            action, fresh, jnp.asarray(slot), pvalid,
             child_term, child_rot, values[:, 0], term_vec).stats
         return (stats, path_p, path_a, path_r, depth, leaf_rot, parent,
                 action, fresh, pvalid, child_term, child_rot)
@@ -157,7 +163,7 @@ def test_packed_contract_matches_jax(num_players):
     launches = FB.fused_backup.launches
     FB.backprop_packed(tstats, t(path_p), t(path_a), t(path_r), t(depth),
                        t(values), t(leaf_rot).long(), t(parent).long(),
-                       t(action).long(), t(fresh), slot, t(pvalid),
+                       t(action).long(), t(fresh), t(slot), t(pvalid),
                        t(child_term), t(child_rot).long(), t(values)[:, 0],
                        t(term_vec))
     assert FB.fused_backup.launches == launches   # CPU: plain version only
@@ -182,7 +188,7 @@ def _entry_inputs(seed, B=12, Mx=9, A=21, S1=6, P=2, slot="scalar"):
             rng.integers(0, Mx, size=B).astype(np.int64),    # parent
             rng.integers(0, A, size=B).astype(np.int64),     # action
             rng.random(B) < 0.6,                             # fresh
-            (5 if slot == "scalar" else
+            (np.full(B, 5, np.int32) if slot == "scalar" else
              rng.integers(1, Mx, size=B).astype(np.int32)),
             rng.random((B, A), np.float32),                  # pvalid_new
             rng.random(B) < 0.4,                             # child_term
@@ -201,7 +207,6 @@ def _sequential_entry(stats, path_p, path_a, path_r, depth, value_vec,
     A, P = C - 2, value_vec.shape[1]
     one = np.float32(1)
     ref = stats.copy()
-    slots = np.broadcast_to(np.asarray(slot), (B,))
     for b in range(B):
         for l in range(int(depth[b]))[::level_order]:
             p = path_p[b, l]
@@ -211,7 +216,7 @@ def _sequential_entry(stats, path_p, path_a, path_r, depth, value_vec,
             for col in (path_a[b, l], A):
                 ref[b, p, FB.EN, col] += one
                 ref[b, p, FB.EW, col] += v
-        s = slots[b]
+        s = slot[b]
         if fresh[b] and s != 0:
             ref[b, parent[b], FB.CHILD, action[b]] += np.float32(
                 -s if child_term[b] else s)
@@ -266,7 +271,7 @@ def test_backprop_packed_slot_collisions():
     """A live level at the slot's node and a child pointer into the slot's
     row: the path's term, then the child's, then the row's."""
     args = _entry_inputs(30)
-    slot = args[10]
+    slot = int(args[10][0])                              # on every board
     args[4][:] = np.maximum(args[4], 3)                  # depth
     args[1][:, 2] = slot                                 # a live p == slot
     args[1][::2, 1] = slot                               # ... twice on some
@@ -294,7 +299,8 @@ def test_backprop_packed_slot_collisions():
             seq[b, cp_[b], FB.CHILD, ca_[b]] += cv_[b]
         seq[b, slot] += row_[b]
     assert (cv_ != 0).any() and (cp_ == slot).all()
-    got = FB.packed_backup(torch.from_numpy(args[0].copy()), *_t(ops), slot)
+    got = FB.packed_backup(torch.from_numpy(args[0].copy()), *_t(ops),
+                           torch.from_numpy(args[10]))
     np.testing.assert_array_equal(got.numpy(), seq)
 
 
@@ -323,7 +329,7 @@ def test_backprop_packed_checks_arguments():
     with pytest.raises(ValueError, match="pvalid_new"):
         FB.backprop_packed(*bad)
     bad = _t(args)
-    bad[10] = args[0].shape[1]                           # slot == M
+    bad[10] = torch.full_like(bad[10], args[0].shape[1])  # slot == M
     with pytest.raises(ValueError, match="slot"):
         FB.backprop_packed(*bad)
     # a live level at a node column would alias the node's own sums; the

@@ -27,7 +27,9 @@ MODULES = [
     "alphazero_tpu_torch.train.trainer",
     "alphazero_tpu_torch.train.coach",
     "alphazero_tpu_torch.eval.arena",
+    "alphazero_tpu_torch.eval.glicko2",
     "alphazero_tpu_torch.cli.main",
+    "alphazero_tpu_torch.cli.pit",
     "alphazero_tpu_torch.utils.checkpoint",
     "alphazero_tpu_torch.utils.device",
     "alphazero_tpu_torch.utils.native",
@@ -73,6 +75,7 @@ def test_entry_points_default_to_cuda():
     from alphazero_tpu_torch.games.splendor import env as E
     from alphazero_tpu_torch.models import splendor_net as N
     from alphazero_tpu_torch.cli import main as CLI
+    from alphazero_tpu_torch.cli import pit as PIT
     from alphazero_tpu_torch.eval import arena as AR
     from alphazero_tpu_torch.search import mcts as M
     from alphazero_tpu_torch.train import coach as CO
@@ -88,14 +91,23 @@ def test_entry_points_default_to_cuda():
                                A.make_uniform_eval_fn(cfg),
                                A.make_search_step_fn(cfg),
                                A.make_valid_fn(cfg)),
+        lambda: M.build_reusing_search(M.MCTSConfig(num_sims=4), 2,
+                                       A.make_uniform_eval_fn(cfg),
+                                       A.make_search_step_fn(cfg),
+                                       A.make_valid_fn(cfg)),
         lambda: SP.SelfPlayEngine(cfg, A.make_uniform_eval_fn(cfg),
                                   SP.SelfPlayConfig(batch_size=2,
                                                     num_sims=4)),
+        lambda: SP.SelfPlayEngine(cfg, A.make_uniform_eval_fn(cfg),
+                                  SP.SelfPlayConfig(batch_size=2, num_sims=4,
+                                                    tree_reuse=True)),
         lambda: TR.init_train_state(A.net_config_for(cfg)),
         lambda: AR.BatchArena(cfg, 2),
         lambda: AR.FusedMatch(cfg, None, 2),
         lambda: CO.Coach(CO.CoachConfig(checkpoint_dir="/nonexistent")),
         lambda: CLI.main(["-C", "/nonexistent"]),
+        lambda: PIT.main(["random", "greedy", "--batched"]),
+        lambda: PIT.main(["--batched", "--tournament", "/nonexistent"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
