@@ -1,15 +1,20 @@
-"""Pit CLI, batched mode: port of ``alphazero_tpu/cli/pit.py --batched``
-(the same flags, plus ``--device``).
+"""Pit CLI: play any two agents against each other (reference pit.py).
 
-Agent specs: ``random``, ``greedy`` or a checkpoint path (NN + MCTS, its
-search settings and net shape read from the checkpoint's meta).  Two
-specs play a pairwise match; ``--tournament DIR`` plays a round robin of
-the checkpoints under DIR and keeps Glicko-2 ratings with ``--ratings``.
-The sequential host mode, ``alphabeta``, ``human``, ``--record-dir`` and
-``--token-limits`` come with the tooling slice of the port and raise
-``NotImplementedError`` here.
+Port of ``alphazero_tpu/cli/pit.py`` (the same flags, plus ``--device``).
+Agent specs: ``random``, ``greedy``, ``alphabeta``, ``human``, or a
+checkpoint path (NN + MCTS, its search settings and net shape read from
+the checkpoint's meta, like the reference's additional_keys, pit.py:50-61).
+
+- The sequential mode (the default) plays one board at a time through the
+  host ``SplendorGame``, with the reference's 1 2 2 1 seat pattern,
+  ``--token-limits`` per seat and ``--record-dir`` game records; with
+  ``--tournament DIR`` it plays a round robin of the checkpoints under DIR.
+- ``--batched`` plays lockstep games on the device: two specs pairwise
+  (``alphabeta`` moves in a pool of CPU workers), or a round robin with
+  ``--tournament``; ``--ratings`` keeps a Glicko-2 book in either mode.
 
 Example:
+    python -m alphazero_tpu_torch.cli.pit random greedy -n 20
     python -m alphazero_tpu_torch.cli.pit ./temp/best.pt greedy --batched -n 20
     python -m alphazero_tpu_torch.cli.pit --batched --tournament ./runs \\
         --ratings ./runs/ratings.json
@@ -23,62 +28,160 @@ import itertools
 import json
 import logging
 import os
+import pickle
 import time
 
+import numpy as np
 import torch
 
 from ..eval import arena as AR
+from ..eval import players as P
 from ..eval.glicko2 import RatingBook
+from ..games.game_api import SplendorGame
 from ..games.splendor import adapter as A
 from ..games.splendor import env as E
-from ..models import splendor_net as N
 from ..search import mcts as M
 from ..utils import checkpoint as CKPT
 from ..utils.device import resolve_device
 
 log = logging.getLogger(__name__)
 
-_TOOLING = ("comes with the tooling slice of the port (game_api.py, "
-            "players.py, ab_pool.py); use --batched with random, greedy or "
-            "checkpoint agents")
+
+def _mcts_config(args, meta):
+    """A checkpoint's search: its meta's ``num_sims`` (unless ``-m``),
+    ``cpuct`` and ``fpu``."""
+    return M.MCTSConfig(
+        num_sims=args.numMCTSSims or int(meta.get("num_sims", 200)),
+        cpuct=float(meta.get("cpuct", 1.0)), fpu=float(meta.get("fpu", 0.0)))
 
 
-def _load_net(path, env_cfg, device):
-    """``(net, meta)`` of a checkpoint; the net's version and width come
-    from its meta (v1, width 128 without them)."""
-    ckpt = CKPT.load_checkpoint(os.path.dirname(path) or ".",
-                                os.path.basename(path))
-    meta = ckpt.get("meta", {})
-    net = N.build_net(A.net_config_for(
-        env_cfg, nn_version=int(meta.get("nn_version", 1)),
-        width=int(meta.get("net_width", 128))), device)
-    net.load_state_dict(N.from_flax(ckpt["params"], ckpt["batch_stats"]))
-    return net, meta
+def _build_search(mcfg, env_cfg, net, device):
+    return M.build_search(mcfg, env_cfg.num_players, A.make_eval_fn(net.cfg),
+                          A.make_search_step_fn(env_cfg),
+                          A.make_valid_fn(env_cfg), device)
+
+
+class MCTSPlayer:
+    """Single-board player over the batched search (B=1), on the game's
+    device."""
+
+    def __init__(self, game, net, num_sims, cpuct=1.0, fpu=0.0,
+                 temp: float = 0.0):
+        self.game = game
+        self.net = net
+        self.temp = temp
+        self.search = _build_search(
+            M.MCTSConfig(num_sims=num_sims, cpuct=cpuct, fpu=fpu), game.cfg,
+            net, game.device)
+        self._gen = torch.Generator(device=game.device).manual_seed(0)
+
+    def play(self, board) -> int:
+        res = self.search(self.net, torch.as_tensor(
+            np.asarray(board), device=self.game.device)[None],
+            generator=self._gen)
+        counts = res.counts[0].cpu().numpy()
+        if self.temp <= 1e-6:
+            return int(counts.argmax())
+        p = counts ** (1.0 / self.temp)
+        p = p / p.sum()
+        return int(np.random.default_rng().choice(len(p), p=p))
+
+
+def create_player(spec: str, game, args):
+    """Reference create_player (pit.py:32-93)."""
+    if spec == "random":
+        return P.RandomPlayer(game, seed=args.seed)
+    if spec == "greedy":
+        return P.GreedyPlayer(game, seed=args.seed)
+    if spec == "human":
+        return P.HumanPlayer(game)
+    if spec == "alphabeta":
+        return P.AlphaBetaPlayer(game, depth=args.ab_depth,
+                                 deadline_s=args.ab_deadline)
+    # checkpoint path -> NN + MCTS
+    net, meta = CKPT.load_net(spec, game.cfg, game.device)
+    mcfg = _mcts_config(args, meta)
+    return MCTSPlayer(game, net, mcfg.num_sims, mcfg.cpuct, mcfg.fpu)
+
+
+def play_games(game, players, num_games, record_dir=None, verbose=False,
+               token_limits=None):
+    """Sequential host arena over the Game adapter; seats follow the
+    reference's 1 2 2 1 alternation (Arena.py:195-202).  ``token_limits``
+    optionally handicaps each seat's gem-holding limit (reference
+    Arena.py:102-116).  Returns (wins_per_agent, draws, score_sums)."""
+    n = game.getNumberOfPlayers()
+    wins = [0] * len(players)
+    draws = 0
+    scores_sum = np.zeros(len(players))
+    pattern = [0, 1, 1, 0]
+    seat_games = [game] * n
+    if token_limits:
+        seat_games = [game if lim == game.cfg.token_limit
+                      else SplendorGame(n, token_limit=lim,
+                                        device=game.device)
+                      for lim in token_limits]
+    for gi in range(num_games):
+        flip = pattern[gi % 4] if len(players) == 2 else gi % len(players)
+        # agent controlling seat s this game
+        agent_of_seat = [(s - flip) % len(players) for s in range(n)]
+        board = game.getInitBoard()
+        player = 0
+        records = []
+        for move_i in range(game.cfg.max_moves + 1):
+            g = seat_games[player]
+            canon = g.getCanonicalForm(board, player)
+            agent = players[agent_of_seat[player]]
+            a = agent.play(canon)
+            valids = g.getValidMoves(canon, 0)
+            assert valids[a], f"illegal move {a} from agent at seat {player}"
+            if verbose:
+                print(f"move {move_i} P{player}: {game.moveToString(a)}")
+            if record_dir:
+                records.append(board.copy())
+            board, player = g.getNextState(board, player, a)
+            r = game.getGameEnded(board)
+            if r.any():
+                top = np.flatnonzero(r > 0)
+                if len(top) == 1:
+                    wins[agent_of_seat[top[0]]] += 1
+                else:
+                    draws += 1
+                for seat in range(n):
+                    scores_sum[agent_of_seat[seat]] += game.getScore(board, seat)
+                break
+        if record_dir:
+            os.makedirs(record_dir, exist_ok=True)
+            with open(os.path.join(record_dir, f"game_{gi}.pkl"), "wb") as f:
+                pickle.dump(records + [board], f)
+        log.info("game %d done: wins=%s draws=%d", gi, wins, draws)
+    return wins, draws, scores_sum
 
 
 def _search_agent(net, env_cfg, mcfg, device):
     """Greedy NN + MCTS agent (temp 0, as the gate plays)."""
-    search = M.build_search(mcfg, env_cfg.num_players, A.make_eval_fn(net.cfg),
-                            A.make_search_step_fn(env_cfg),
-                            A.make_valid_fn(env_cfg), device)
-    return AR.make_search_agent(search, net)
+    return AR.make_search_agent(_build_search(mcfg, env_cfg, net, device),
+                                net)
 
 
-def _batched_agent(spec: str, env_cfg, args, device):
+def _batched_agent(spec: str, env_cfg, args, device, closers: list):
     """A batched-arena agent ``(canon [B,R,7], generator) -> actions [B]``
-    for an agent spec; a checkpoint searches with its meta's ``num_sims``
-    (unless ``-m``), ``cpuct`` and ``fpu``."""
+    for an agent spec; ``alphabeta`` starts a worker pool whose ``close``
+    goes into ``closers``.  Any other spec is a checkpoint path, ``human``
+    included, as in the JAX pit."""
     if spec == "random":
         return AR.make_random_agent(A.make_valid_fn(env_cfg))
     if spec == "greedy":
         return AR.make_greedy_agent(env_cfg)
-    if spec in ("alphabeta", "human"):
-        raise NotImplementedError(f"the {spec!r} agent {_TOOLING}")
-    net, meta = _load_net(spec, env_cfg, device)
-    mcfg = M.MCTSConfig(
-        num_sims=args.numMCTSSims or int(meta.get("num_sims", 200)),
-        cpuct=float(meta.get("cpuct", 1.0)), fpu=float(meta.get("fpu", 0.0)))
-    return _search_agent(net, env_cfg, mcfg, device)
+    if spec == "alphabeta":
+        from ..eval.ab_pool import AlphaBetaPool
+        pool = AlphaBetaPool(env_cfg.num_players, depth=args.ab_depth,
+                             deadline_s=args.ab_deadline,
+                             value_ckpt=args.ab_value_ckpt)
+        closers.append(pool.close)
+        return pool.agent
+    net, meta = CKPT.load_net(spec, env_cfg, device)
+    return _search_agent(net, env_cfg, _mcts_config(args, meta), device)
 
 
 def play_batched(args, device):
@@ -92,21 +195,35 @@ def play_batched(args, device):
         log.warning("-n %d is not a multiple of %d players: playing %d "
                     "games (%d per seat)", args.num_games, n, per_seat * n,
                     per_seat)
-    a_main = _batched_agent(args.players[0], env_cfg, args, device)
-    a_opp = _batched_agent(args.players[1], env_cfg, args, device)
-    arena = AR.BatchArena(env_cfg, per_seat, device=device)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
+    if "alphabeta" in args.players and not args.ab_value_ckpt:
+        # reference parity: alphabeta's leaf eval defaults to the NN
+        # opponent's own value head (pit.py:71-72)
+        others = [s for s in args.players if os.path.exists(s)]
+        if others:
+            args.ab_value_ckpt = others[0]
+            log.info("alphabeta leaf values from %s", others[0])
+    closers: list = []
     w = l = d = 0
     t0 = time.time()
-    for seat in range(n):
-        agents = [a_main if p == seat else a_opp for p in range(n)]
-        wins, dr = arena.play(agents, gen).tally(
-            [0 if p == seat else 1 for p in range(n)])
-        w += wins[0]
-        l += wins[1]
-        d += dr
-        log.info("seat %d/%d done: cumulative %d-%d (%d draws)",
-                 seat + 1, n, w, l, d)
+    try:
+        a_main = _batched_agent(args.players[0], env_cfg, args, device,
+                                closers)
+        a_opp = _batched_agent(args.players[1], env_cfg, args, device,
+                               closers)
+        arena = AR.BatchArena(env_cfg, per_seat, device=device)
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        for seat in range(n):
+            agents = [a_main if p == seat else a_opp for p in range(n)]
+            wins, dr = arena.play(agents, gen).tally(
+                [0 if p == seat else 1 for p in range(n)])
+            w += wins[0]
+            l += wins[1]
+            d += dr
+            log.info("seat %d/%d done: cumulative %d-%d (%d draws)",
+                     seat + 1, n, w, l, d)
+    finally:
+        for c in closers:
+            c()
     out = {"players": args.players, "num_players": n,
            "games": w + l + d, "wins": w, "losses": l, "draws": d,
            "winrate": (w + 0.5 * d) / max(w + l + d, 1),
@@ -145,8 +262,8 @@ def run_tournament_batched(args, device):
     mcfg = M.MCTSConfig(num_sims=args.numMCTSSims or 200)
 
     def agent(path):
-        return _search_agent(_load_net(path, env_cfg, device)[0], env_cfg,
-                             mcfg, device)
+        return _search_agent(CKPT.load_net(path, env_cfg, device)[0],
+                             env_cfg, mcfg, device)
 
     arena = AR.BatchArena(env_cfg, max(args.num_games // 2, 1), device=device)
     book = RatingBook.load(args.ratings) if args.ratings else None
@@ -171,6 +288,32 @@ def run_tournament_batched(args, device):
     return book
 
 
+def run_tournament(game, args):
+    """Round-robin of recent checkpoints with Glicko-2 bookkeeping
+    (reference pit.py:115-201 play_age/update_ratings), one board at a
+    time; the book names each checkpoint by its path.  Returns the book or
+    None."""
+    paths = _tournament_paths(args)
+    if len(paths) < 2:
+        print(f"need >=2 checkpoints under {args.tournament}, found {len(paths)}")
+        return None
+    print(f"tournament: {len(paths)} checkpoints")
+    book = RatingBook.load(args.ratings) if args.ratings else None
+    for pa, pb in itertools.combinations(paths, 2):
+        players = [create_player(pa, game, args), create_player(pb, game, args)]
+        wins, draws, _ = play_games(game, players, args.num_games)
+        print(f"{os.path.relpath(pa, args.tournament)} vs "
+              f"{os.path.relpath(pb, args.tournament)}: {wins} draws={draws}")
+        if book is not None:
+            total = wins[0] + wins[1] + draws
+            book.record_match(pa, pb, (wins[0] + 0.5 * draws) / max(total, 1))
+            book.save()
+    if book is not None:
+        for name, r in sorted(book.ratings.items(), key=lambda kv: -kv[1].rating):
+            print(f"{r.rating:7.1f} +-{r.rd:5.1f}  {name}")
+    return book
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="pit agents")
     p.add_argument("players", nargs="*",
@@ -180,27 +323,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--numMCTSSims", "-m", type=int, default=0)
     p.add_argument("--numPlayers", "-np", type=int, default=2)
     p.add_argument("--ab-depth", type=int, default=6,
-                   help="alphabeta search depth; only echoed into the JSON "
-                        "record until alphabeta is ported")
+                   help="alphabeta search depth (reference DEFAULT_DEPTH=6, "
+                        "SplendorPlayers.py:16)")
     p.add_argument("--ab-deadline", type=float, default=10.0,
-                   help="alphabeta per-move budget in seconds; only echoed "
-                        "into the JSON record until alphabeta is ported")
+                   help="alphabeta per-move wall-clock budget in seconds "
+                        "(reference MAX_SEARCH_TIME=10, "
+                        "SplendorPlayers.py:15)")
+    p.add_argument("--ab-value-ckpt", default=None,
+                   help="checkpoint whose value head evaluates alphabeta "
+                        "leaves (reference valueFuncNN; --batched defaults "
+                        "to the NN opponent's checkpoint, else heuristic)")
     p.add_argument("--record-dir", default=None,
-                   help="pickle each game's boards (sequential mode; not "
-                        "ported yet)")
+                   help="pickle each game's boards (sequential mode)")
     p.add_argument("--ratings", default=None,
                    help="path to a glicko2 JSON book to update")
     p.add_argument("--token-limits", default=None,
-                   help="per-seat gem limits, e.g. 8,10 (handicap mode; "
-                        "not ported yet)")
+                   help="per-seat gem limits, e.g. 8,10 (handicap mode of "
+                        "the sequential pit; reference Arena.py:102-116)")
     p.add_argument("--tournament", default=None, metavar="DIR",
                    help="round-robin all best*.pt / checkpoint_*.pt under "
                         "DIR instead of explicit players")
     p.add_argument("--max-age-hours", type=float, default=None,
                    help="with --tournament: only checkpoints newer than this")
     p.add_argument("--batched", action="store_true",
-                   help="device-batched lockstep arena (the only mode "
-                        "ported so far)")
+                   help="device-batched lockstep arena instead of the "
+                        "sequential host loop (2 agent specs; alphabeta "
+                        "moves run in a parallel CPU worker pool)")
     p.add_argument("--verbose", "-v", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
@@ -215,18 +363,41 @@ def main(argv=None):
     args = p.parse_args(argv)
     if not args.tournament and len(args.players) < 2:
         p.error("need at least 2 agent specs (or --tournament DIR)")
-    if not args.batched:
-        raise NotImplementedError(f"the sequential pit {_TOOLING}")
-    for flag, value in (("--record-dir", args.record_dir),
-                        ("--token-limits", args.token_limits)):
-        if value:
-            raise NotImplementedError(f"{flag} {_TOOLING}")
-    device = resolve_device(args.device)
+    if args.batched:
+        for flag, value in (("--record-dir", args.record_dir),
+                            ("--token-limits", args.token_limits)):
+            if value:
+                p.error(f"{flag} is a flag of the sequential pit; drop "
+                        f"--batched to use it")
+        device = resolve_device(args.device)
+        if args.tournament:
+            return run_tournament_batched(args, device)
+        if len(args.players) != 2:
+            p.error("--batched takes exactly 2 agent specs")
+        return play_batched(args, device)
+
+    game = SplendorGame(args.numPlayers, seed=args.seed, device=args.device)
     if args.tournament:
-        return run_tournament_batched(args, device)
-    if len(args.players) != 2:
-        p.error("--batched takes exactly 2 agent specs")
-    return play_batched(args, device)
+        return run_tournament(game, args)
+
+    limits = ([int(x) for x in args.token_limits.split(",")]
+              if args.token_limits else None)
+    players = [create_player(s, game, args) for s in args.players]
+    wins, draws, scores = play_games(game, players, args.num_games,
+                                     record_dir=args.record_dir,
+                                     verbose=args.verbose,
+                                     token_limits=limits)
+    print(f"result: wins={wins} draws={draws} avg_scores="
+          f"{(scores / max(args.num_games, 1)).round(2).tolist()}")
+
+    if args.ratings and len(players) == 2:
+        book = RatingBook.load(args.ratings)
+        total = wins[0] + wins[1] + draws
+        score_a = (wins[0] + 0.5 * draws) / max(total, 1)
+        book.record_match(args.players[0], args.players[1], score_a)
+        book.save()
+        print({k: round(v.rating, 1) for k, v in book.ratings.items()})
+    return wins, draws, scores
 
 
 if __name__ == "__main__":

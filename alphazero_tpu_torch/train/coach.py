@@ -397,7 +397,8 @@ class Coach:
         the replay buffer and, on a strict load, the Adam moments.  Sibling
         checkpoints are tried only with ``fallback``."""
         target, target_bs = N.to_flax(self.train_state.net.state_dict())
-        ckpt = CKPT.load_network(folder, filename, target, fallback=fallback)
+        ckpt = CKPT.load_network(folder, filename, target, fallback=fallback,
+                                 target_batch_stats=target_bs)
         ex_path = os.path.join(folder, "checkpoint.examples")
         if load_examples and os.path.exists(ex_path):
             self.replay = ReplayBuffer.load(
@@ -405,10 +406,6 @@ class Coach:
                 max_per_iter=self.cfg.max_examples_per_iter)
             log.info("resumed %d replay examples from %s",
                      len(self.replay), ex_path)
-        if ckpt["load_mode"] == "partial":
-            # running statistics follow the parameters' slicing
-            ckpt["batch_stats"] = CKPT.transfer_partial(ckpt["batch_stats"],
-                                                        target_bs)
         self._load_weights(ckpt)
         if ckpt.get("opt_state") is not None and ckpt["load_mode"] == "strict":
             # resume the Adam moments so a crash-restart does not silently

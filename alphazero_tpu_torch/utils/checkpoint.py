@@ -96,6 +96,23 @@ def load_checkpoint(folder: str, filename: str) -> dict:
     return ckpt
 
 
+def load_net(path: str, env_cfg, device):
+    """``(net, meta)`` of the checkpoint file at ``path``: a
+    ``SplendorNet`` for ``env_cfg`` on ``device`` holding its weights; the
+    net's version and width come from the meta (v1, width 128 without
+    them)."""
+    from ..games.splendor import adapter as A
+    from ..models import splendor_net as N
+    ckpt = load_checkpoint(os.path.dirname(path) or ".",
+                           os.path.basename(path))
+    meta = ckpt.get("meta", {})
+    net = N.build_net(A.net_config_for(
+        env_cfg, nn_version=int(meta.get("nn_version", 1)),
+        width=int(meta.get("net_width", 128))), device)
+    net.load_state_dict(N.from_flax(ckpt["params"], ckpt["batch_stats"]))
+    return net, meta
+
+
 def _shapes_match(loaded_params, target_params) -> bool:
     try:
         la = [v for _, v in tree_items(loaded_params)]
@@ -107,7 +124,7 @@ def _shapes_match(loaded_params, target_params) -> bool:
 
 
 def load_network(folder: str, filename: str, target_params=None,
-                 fallback: bool = True) -> dict:
+                 fallback: bool = True, target_batch_stats=None) -> dict:
     """Robust checkpoint load chain: strict load when every leaf shape
     matches the Flax-layout ``target_params`` -> shape-sliced partial
     transfer across architectures -> with ``fallback``, sibling checkpoints
@@ -117,7 +134,9 @@ def load_network(folder: str, filename: str, target_params=None,
     typoed path.
 
     Returns the checkpoint dict with ``params`` already reconciled against
-    ``target_params`` (when given) and a ``load_mode`` key in
+    ``target_params`` (when given; on a partial transfer the running
+    statistics follow the same slicing against ``target_batch_stats``, when
+    given) and a ``load_mode`` key in
     {"strict", "partial"} plus ``load_source`` (the file actually used)."""
     import logging
     log = logging.getLogger(__name__)
@@ -157,6 +176,9 @@ def load_network(folder: str, filename: str, target_params=None,
             log.warning("architecture mismatch: shape-sliced partial weight "
                         "transfer")
             ckpt["params"] = transfer_partial(ckpt["params"], target_params)
+            if target_batch_stats is not None:
+                ckpt["batch_stats"] = transfer_partial(ckpt["batch_stats"],
+                                                       target_batch_stats)
             ckpt["load_mode"] = "partial"
         ckpt["load_source"] = cand
         return ckpt

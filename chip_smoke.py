@@ -47,7 +47,14 @@ Phases (each raises on failure):
 9. pit: ``cli.pit runs/r6/best.pt greedy --batched -n 4 -m 16``, then a
    batched tournament of r6 and the coach phase's ``temp.pt`` with a
    ratings book, their backups checked the same way;
-phases 4, 7, 8 and 9 assert one backup launch per simulation their
+10. tooling: the sequential pit (``cli.pit runs/r6/best.pt greedy -n 2
+   -m 16 --record-dir``), ``cli.analyze`` of a recorded game, alpha-beta
+   (depth 1, 0.5 s, 2 CPU workers) against r6 under ``--batched``,
+   ``cli.train_offline`` for one epoch on phase 4's examples from r6, and
+   ``review_position`` of a board-DSL position at 1,600 sims (B=1, M=1601)
+   inside ``utils.profiling.trace`` with its ``top_ops``; the entry's
+   device time at B=1/M=17 and B=1/M=1601 beside its bound;
+phases 4, 7, 8, 9 and 10 assert one backup launch per simulation their
 searches ran;
 then one JSON line with every kernel's launches, error and times, and the
 last line ``{"ok": true, "device": {...}}``.  It exits non-zero, printing
@@ -59,9 +66,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import logging
 import os
+import pickle
 import statistics
 import subprocess
 import sys
@@ -547,13 +556,9 @@ def phase_kernels():
 
 
 def _r6_net(cfg, device):
-    from alphazero_tpu_torch.games.splendor import adapter as A
-    from alphazero_tpu_torch.models import splendor_net as N
     from alphazero_tpu_torch.utils import checkpoint as C
-    ckpt = C.load_checkpoint(os.path.join(ROOT, "runs", "r6"), "best.pt")
-    net = N.build_net(A.net_config_for(cfg, nn_version=1, width=128), device)
-    net.load_state_dict(N.from_flax(ckpt["params"], ckpt["batch_stats"]))
-    return net
+    return C.load_net(os.path.join(ROOT, "runs", "r6", "best.pt"), cfg,
+                      device)[0]
 
 
 def _profile(fn):
@@ -1350,6 +1355,215 @@ def phase_pit(coach_temp):
             "backup_max_abs_err": err}
 
 
+# the review phase's board, from the board DSL (the JAX board-DSL tests'
+# demo spec): a mid-game position with reserved and bought cards
+REVIEW_SPEC = {
+    "Tier1": ["B3", "R21", "K22", "W4"],
+    "Tier2": ["G322", "B5", "R53", "K6"],
+    "Tier3": ["W5333", "G7", "B73", "R633"],
+    "Bank": [4, 4, 3, 4, 4, 5],
+    "Nobles": ["RG", "KW", "BW"],
+    "Gems": [[1, 0, 2, 0, 0, 1], [0, 1, 0, 2, 0, 0]],
+    "Cards": [[1, 0, 0, 0, 0], [0, 0, 1, 1, 0]],
+    "Reserve": [["G21"], []],
+    "PlayersCards": [["B1111", "R4"], ["K3", "W21", "G221"]],
+    "PlayersNobles": [[], []],
+}
+
+
+def _entry_at(kept, device_ms=None):
+    """The entry's device time per launch on the kept backups of one shape
+    (``_recording_backup``'s samples), or ``device_ms`` when the caller
+    measured it, beside its least time (the mean of ``_entry_work`` over
+    them) and, when it is measured here, ``index_put_``'s time and the
+    plain version's synchronized host time on the first kept backup."""
+    from alphazero_tpu_torch.ops import fused_backup as FB
+    work = [_entry_work(before, *raw) for before, raw, _ in kept]
+    nbytes = sum(w[0] for w in work) / len(work)
+    bound_ms, bound_by = _bound(nbytes, sum(w[1] for w in work) / len(work))
+    out = {"ms": device_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "bytes": nbytes, "library_ms": None, "plain_host_ms": None}
+    if device_ms is not None:
+        return out
+    st = kept[0][0].clone()
+    raws = [raw for _, raw, _ in kept]
+
+    def entry():
+        for raw in raws:
+            FB.backprop_packed(st, *raw)
+    flat = st.view(-1)
+    flats = [_entry_touched(before, *raw)[:2] for before, raw, _ in kept]
+
+    def library():
+        for idx, val in flats:
+            flat.index_put_((idx,), val, accumulate=True)
+    n = len(raws)
+    out.update(ms=_device_ms(entry, "fused_backup_", per_call=n),
+               library_ms=_device_ms(library, per_call=n),
+               plain_host_ms=_time_host_ms(
+                   lambda: FB.backprop_packed_plain(st, *raws[0])))
+    return out
+
+
+def phase_tooling(examples, review_sims=1600):
+    """The tooling slice on the card, through its entry points: the
+    sequential pit (r6 vs greedy, 2 games at 16 sims, recorded), ``analyze``
+    on a recorded game, alpha-beta against r6 under ``--batched`` (its
+    moves in a pool of CPU workers, r6's on the card), ``train_offline`` for
+    one epoch on phase 4's examples from r6, and last ``review_position`` of
+    a board from the board DSL at ``review_sims`` (B=1, no depth cap: a
+    path buffer as wide) inside ``profiling.trace``, with its ``top_ops``.
+    Every search's backups are counted against its simulations and a spread
+    of them at each shape is held exactly to the plain version.  The
+    entry's device time at B=1/M=17 is profiled on the pit's backups before
+    the review; at B=1/M=1601 it is the review trace's own record of every
+    launch: a trace of over a million kernels, after which this process's
+    profiler may see no more kernels, so nothing is profiled after it."""
+    import math
+    import numpy as np
+    from alphazero_tpu_torch.cli import analyze as ANALYZE
+    from alphazero_tpu_torch.cli import pit as PIT
+    from alphazero_tpu_torch.cli import review as REVIEW
+    from alphazero_tpu_torch.cli import train_offline as TO
+    from alphazero_tpu_torch.eval import ab_pool as AB
+    from alphazero_tpu_torch.games.game_api import SplendorGame
+    from alphazero_tpu_torch.games.splendor import board_dsl as D
+    from alphazero_tpu_torch.ops import fused_backup as FB
+    from alphazero_tpu_torch.train import replay as R
+    from alphazero_tpu_torch.utils import checkpoint as C
+    from alphazero_tpu_torch.utils import profiling as PROF
+    r6 = os.path.join(ROOT, "runs", "r6", "best.pt")
+    t_phase = time.perf_counter()
+    samples, sims, rec = {}, [0], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with _checked_path(sims, samples) as calls:
+            FB.fused_backup.launches = 0
+            # the sequential pit, its games recorded
+            games = os.path.join(tmp, "games")
+            t0 = time.perf_counter()
+            wins, draws, scores = PIT.main([r6, "greedy", "-n", "2", "-m",
+                                            "16", "--record-dir", games])
+            rec["pit_seconds"] = time.perf_counter() - t0
+            rec["pit"] = {"wins": wins, "draws": draws,
+                          "scores": scores.tolist()}
+            if sum(wins) + draws != 2:
+                raise AssertionError(f"sequential pit: {wins} {draws}")
+            # analyze one recorded game
+            with open(os.path.join(games, "game_0.pkl"), "rb") as f:
+                recorded = len(pickle.load(f))
+            rows = ANALYZE.main([os.path.join(games, "game_0.pkl"), "-c", r6,
+                                 "-o", os.path.join(tmp, "report.csv")])
+            if len(rows) != recorded or not all(
+                    math.isfinite(r["value"]) and math.isfinite(r["entropy"])
+                    for r in rows):
+                raise AssertionError(f"analyze: {len(rows)} rows for "
+                                     f"{recorded} boards")
+            rec["analyze_turns"] = len(rows)
+            # alpha-beta under --batched against r6: a pool of 2 CPU
+            # workers (one board per wave here; the default is one per CPU)
+            pool_init = AB.AlphaBetaPool.__init__
+            AB.AlphaBetaPool.__init__ = functools.partialmethod(pool_init,
+                                                                workers=2)
+            try:
+                t0 = time.perf_counter()
+                ab = PIT.main(["alphabeta", r6, "--batched", "-n", "2", "-m",
+                               "8", "--ab-depth", "1", "--ab-deadline",
+                               "0.5"])
+                rec["alphabeta_seconds"] = time.perf_counter() - t0
+            finally:
+                AB.AlphaBetaPool.__init__ = pool_init
+            rec["alphabeta"] = ab
+            if ab["games"] != 2:
+                raise AssertionError(f"alphabeta --batched: {ab}")
+            # the entry at the pit's shape, before any trace
+            if (1, 17, 16) not in samples:
+                raise AssertionError("no backup recorded at B=1, M=17")
+            _sync()
+            pit_launches = FB.fused_backup.launches
+            m17 = _entry_at(samples[1, 17, 16])
+            FB.fused_backup.launches = pit_launches
+            # offline training on phase 4's examples, warm-started from r6
+            ex = os.path.join(tmp, "phase4.examples")
+            replay = R.ReplayBuffer()
+            replay.add_iteration(examples)
+            replay.save(ex)
+            out = os.path.join(tmp, "offline")
+            t0 = time.perf_counter()
+            TO.main(["-T", ex, "-i", r6, "-o", out, "-p", "1", "-b", "64"])
+            rec["train_offline_seconds"] = time.perf_counter() - t0
+            meta = C.load_checkpoint(out, "last.pt")["meta"]
+            if not (math.isfinite(meta["loss"]) and "val_loss" in meta):
+                raise AssertionError(f"train_offline: {meta}")
+            rec["train_offline_loss"] = meta["loss"]
+            # review a DSL board at full width, traced
+            game = SplendorGame(2)
+            board = D.spec_to_state(REVIEW_SPEC, 2, 0)
+            net, _ = C.load_net(r6, game.cfg, game.device)
+            trace_dir = os.path.join(tmp, "trace")
+            _sync()
+            with PROF.trace(trace_dir):
+                t0 = time.perf_counter()
+                pi, q = REVIEW.review_position(game, net, board, review_sims)
+                _sync()
+                review_s = time.perf_counter() - t0
+            review_launches = FB.fused_backup.launches - pit_launches
+            launches = FB.fused_backup.launches
+            t0 = time.perf_counter()
+            ops = PROF.top_ops(trace_dir, None)
+            top_ops_s = time.perf_counter() - t0
+    if launches != sims[0] or review_launches != review_sims:
+        raise AssertionError(f"tooling: {launches} backup launches for "
+                             f"{sims[0]} simulations ({review_launches} in "
+                             f"the review)")
+    entry_rows = [r for r in ops if "fused_backup_entry_kernel" in r[3]]
+    if len(entry_rows) != 1 or not 0.9 * review_sims <= entry_rows[0][1]:
+        raise AssertionError(f"review trace rows {entry_rows}")
+    if not (abs(pi.sum() - 1.0) < 1e-6 and np.isfinite(q).all()):
+        raise AssertionError(f"review: pi sums to {pi.sum()}, q {q}")
+    err, _ = _check_recorded(samples, calls, "the tooling's searches")
+    key = (1, review_sims + 1, review_sims)
+    if key not in samples:
+        raise AssertionError(f"no backup recorded at B, M, S1 = {key}")
+    total_us, records = entry_rows[0][0], entry_rows[0][1]
+    shapes = {"B1_M17": m17,
+              f"B1_M{review_sims + 1}": _entry_at(
+                  samples[key], device_ms=total_us / records / 1e3)}
+    del samples
+    top = [(int(a), float(pi[a])) for a in np.argsort(-pi)[:5]]
+    rec["review"] = {"seconds": review_s,
+                     "ms_per_sim": review_s * 1e3 / review_sims,
+                     "top_ops_seconds": top_ops_s, "top": top,
+                     "q": q.tolist(), "top_ops": ops[:8],
+                     "entry_row": entry_rows[0],
+                     "device_ops": sum(r[1] for r in ops)}
+    rec.update(launches=launches, simulations=sims[0],
+               backup_max_abs_err=err, entry_by_shape=shapes,
+               seconds=time.perf_counter() - t_phase)
+    r = rec["review"]
+    print(f"tooling: sequential pit r6 vs greedy {wins} ({draws} draws) in "
+          f"{rec['pit_seconds']:.1f} s; analyze {len(rows)} turns; "
+          f"alphabeta vs r6 --batched {ab['wins']}-{ab['losses']} "
+          f"({ab['draws']} draws) in {rec['alphabeta_seconds']:.1f} s; "
+          f"train_offline 1 epoch {rec['train_offline_seconds']:.1f} s, "
+          f"loss {meta['loss']:.4f}; review at {review_sims} sims (traced) "
+          f"{review_s:.2f} s, {r['ms_per_sim']:.3f} ms/sim, root q "
+          f"{[round(x, 3) for x in r['q']]}, top moves {top}", flush=True)
+    print(f"tooling review top_ops ({r['device_ops']} device ops, read in "
+          f"{top_ops_s:.1f} s; total_us, count, type, name): "
+          + "; ".join(f"{t:.0f} {c} {ty} {n[:48]}" for t, c, ty, n in ops[:6])
+          + f"; fused_backup_entry_kernel row: {total_us:.0f} us, "
+          f"{records} records for {review_launches} launches", flush=True)
+    print("fused_backup entry device us per launch at the tooling's shapes: "
+          + ", ".join(f"{k} {v['ms'] * 1e3:.3f} (bound "
+                      f"{v['bound_ms'] * 1e3:.4f}, {v['bytes']:.0f} bytes, "
+                      f"{v['bound_by']})" for k, v in shapes.items())
+          + f"; at B1_M17 index_put_ {m17['library_ms'] * 1e3:.1f}, plain "
+          f"host {m17['plain_host_ms'] * 1e3:.1f}", flush=True)
+    print(f"tooling: backup launches {launches} = simulations {sims[0]}; "
+          f"phase {rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
 def phase_reference():
     """The same small searches on the CPU (plain versions) and the card."""
     import torch
@@ -1411,6 +1625,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as keep:
         coach = phase_coach(keep)
         pit = phase_pit(os.path.join(keep, "temp.pt"))
+    tooling = phase_tooling(examples)
     total_s = time.perf_counter() - t0
     print(f"kernel phase {t_kernels:.0f} s of {total_s:.0f} s", flush=True)
 
@@ -1421,9 +1636,10 @@ def main(argv=None) -> int:
         "replaces": "alphazero_tpu/ops/fused_backup.py:118",
         "launches": (search["launches"] + selfplay["launches"]
                      + coach["launches"] + reuse["launches"]
-                     + pit["launches"]),
+                     + pit["launches"] + tooling["launches"]),
         "max_abs_err": max(kb["max_abs_err"], coach["backup_max_abs_err"],
-                           reuse["max_abs_err"], pit["backup_max_abs_err"]),
+                           reuse["max_abs_err"], pit["backup_max_abs_err"],
+                           tooling["backup_max_abs_err"]),
         "ms": kb["ms"],
         "plain_ms": kb["plain_ms"], "bound_ms": kb["bound_ms"],
         "bound_by": kb["bound_by"], "library_ms": kb["library_ms"]}]}
@@ -1431,7 +1647,7 @@ def main(argv=None) -> int:
               "kernels": kernels,
               "search": search, "selfplay": selfplay, "reuse": reuse,
               "reference": reference, "train": train, "coach": coach,
-              "pit": pit,
+              "pit": pit, "tooling": tooling,
               "torch": torch.__version__, "cuda": torch.version.cuda}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

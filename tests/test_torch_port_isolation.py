@@ -16,6 +16,10 @@ MODULES = [
     "alphazero_tpu_torch.games.splendor.env",
     "alphazero_tpu_torch.games.splendor.adapter",
     "alphazero_tpu_torch.games.splendor.symmetry",
+    "alphazero_tpu_torch.games.splendor.strings",
+    "alphazero_tpu_torch.games.splendor.render",
+    "alphazero_tpu_torch.games.splendor.board_dsl",
+    "alphazero_tpu_torch.games.game_api",
     "alphazero_tpu_torch.models",
     "alphazero_tpu_torch.models.splendor_net",
     "alphazero_tpu_torch.ops._build",
@@ -28,11 +32,22 @@ MODULES = [
     "alphazero_tpu_torch.train.coach",
     "alphazero_tpu_torch.eval.arena",
     "alphazero_tpu_torch.eval.glicko2",
+    "alphazero_tpu_torch.eval.players",
+    "alphazero_tpu_torch.eval.ab_pool",
     "alphazero_tpu_torch.cli.main",
     "alphazero_tpu_torch.cli.pit",
+    "alphazero_tpu_torch.cli.review",
+    "alphazero_tpu_torch.cli.advise",
+    "alphazero_tpu_torch.cli.analyze",
+    "alphazero_tpu_torch.cli.restart",
+    "alphazero_tpu_torch.cli.live_assist",
+    "alphazero_tpu_torch.cli.examples_tool",
+    "alphazero_tpu_torch.cli.train_offline",
+    "alphazero_tpu_torch.cli.train_resilient",
     "alphazero_tpu_torch.utils.checkpoint",
     "alphazero_tpu_torch.utils.device",
     "alphazero_tpu_torch.utils.native",
+    "alphazero_tpu_torch.utils.profiling",
     "chip_smoke",
 ]
 
@@ -76,6 +91,8 @@ def test_entry_points_default_to_cuda():
     from alphazero_tpu_torch.models import splendor_net as N
     from alphazero_tpu_torch.cli import main as CLI
     from alphazero_tpu_torch.cli import pit as PIT
+    from alphazero_tpu_torch.cli import train_offline as TO
+    from alphazero_tpu_torch.games import game_api as API
     from alphazero_tpu_torch.eval import arena as AR
     from alphazero_tpu_torch.search import mcts as M
     from alphazero_tpu_torch.train import coach as CO
@@ -108,6 +125,9 @@ def test_entry_points_default_to_cuda():
         lambda: CLI.main(["-C", "/nonexistent"]),
         lambda: PIT.main(["random", "greedy", "--batched"]),
         lambda: PIT.main(["--batched", "--tournament", "/nonexistent"]),
+        lambda: PIT.main(["random", "greedy"]),
+        lambda: API.SplendorGame(),
+        lambda: TO.main(["-T", "/nonexistent"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):

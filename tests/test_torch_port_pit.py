@@ -6,7 +6,12 @@
   greedy beats random.
 - ``--batched --tournament`` plays every pair of the checkpoints the port
   saved under a directory and writes a ratings book that JAX reads.
-- The modes that wait for the tooling slice raise ``NotImplementedError``.
+- ``test_pit_modes``: the sequential pit plays random vs greedy;
+  ``alphabeta`` under ``--batched`` plays (depth 1, a pool of 2 CPU
+  workers); ``--batched`` with ``--record-dir`` or ``--token-limits`` is a
+  parser error that names the sequential mode; ``human`` under
+  ``--batched`` fails as the JAX pit does (it is read as a checkpoint
+  path).
 - A ``Coach.learn`` iteration runs with ``tree_reuse=True`` (what
   ``cli.main --tree-reuse`` sets).
 """
@@ -16,8 +21,10 @@ import json
 import pytest
 import torch
 
+from alphazero_tpu.cli import pit as JPIT
 from alphazero_tpu.eval import glicko2 as JG
 from alphazero_tpu_torch.cli import pit as PIT
+from alphazero_tpu_torch.eval import ab_pool as AB
 from alphazero_tpu_torch.eval import glicko2 as G
 from alphazero_tpu_torch.games.splendor import adapter as A
 from alphazero_tpu_torch.games.splendor import env as E
@@ -92,16 +99,35 @@ def test_pit_tournament_writes_a_book_jax_reads(tmp_path, capsys):
     assert {r["rd"] for r in _ratings(jbook).values()} != {350.0}
 
 
-@pytest.mark.parametrize("argv", [
-    ["alphabeta", "greedy", "--batched"],
-    ["random", "human", "--batched"],
-    ["random", "greedy"],
-    ["random", "greedy", "--batched", "--record-dir", "games"],
-    ["random", "greedy", "--batched", "--token-limits", "8,10"],
-])
-def test_modes_of_the_tooling_slice_raise(argv):
-    with pytest.raises(NotImplementedError, match="tooling slice"):
-        PIT.main(argv + ["--device", "cpu"])
+@pytest.mark.parametrize("mode", ["sequential", "alphabeta_batched",
+                                  "record_dir_batched", "token_limits_batched",
+                                  "human_batched"])
+def test_pit_modes(mode, monkeypatch, capsys):
+    cpu = ["--device", "cpu"]
+    if mode == "sequential":
+        wins, draws, scores = PIT.main(["random", "greedy", "-n", "2",
+                                        "--seed", "1"] + cpu)
+        assert sum(wins) + draws == 2 and scores.shape == (2,)
+        assert "result: wins=" in capsys.readouterr().out
+    elif mode == "alphabeta_batched":
+        monkeypatch.setattr(AB.os, "cpu_count", lambda: 2)
+        out = PIT.main(["alphabeta", "greedy", "--batched", "-n", "2",
+                        "--ab-depth", "1", "--ab-deadline", "0.5"] + cpu)
+        assert out["games"] == 2 and out["ab_depth"] == 1
+    elif mode == "human_batched":
+        with pytest.raises(FileNotFoundError) as want:
+            JPIT.main(["random", "human", "--batched"])
+        with pytest.raises(FileNotFoundError) as got:
+            PIT.main(["random", "human", "--batched"] + cpu)
+        assert str(got.value) == str(want.value)
+    else:
+        flag = {"record_dir_batched": ["--record-dir", "games"],
+                "token_limits_batched": ["--token-limits", "8,10"]}[mode]
+        with pytest.raises(SystemExit) as exc:
+            PIT.main(["random", "greedy", "--batched"] + flag + cpu)
+        assert exc.value.code == 2
+        err = capsys.readouterr().err
+        assert f"{flag[0]} is a flag of the sequential pit" in err
 
 
 def test_coach_iteration_with_tree_reuse(tmp_path):
