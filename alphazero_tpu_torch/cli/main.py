@@ -3,6 +3,13 @@ defaults, plus ``--device``).
 
 Example:
     python -m alphazero_tpu_torch.cli.main -m 200 -e 256 -i 5 -C ./results/run1
+
+``--distributed`` joins the process group that torchrun's variables
+describe (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
+``LOCAL_RANK``), one process per device, and the coach shards self-play
+and training over it:
+    torchrun --nproc-per-node 2 -m alphazero_tpu_torch.cli.main \
+        --distributed --device cpu -C ./results/run1
 """
 
 from __future__ import annotations
@@ -11,6 +18,7 @@ import argparse
 import logging
 import os
 
+from ..parallel import distributed as D
 from ..train.coach import Coach, CoachConfig, completed_iterations
 
 log = logging.getLogger(__name__)
@@ -97,7 +105,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", "-P", action="store_true",
                    help="run one profiled iteration with torch.profiler")
     p.add_argument("--distributed", action="store_true",
-                   help="join a multi-process run (not ported yet: raises)")
+                   help="join the process group of torchrun's variables "
+                        "(one process per device) and shard over it")
     p.add_argument("--device", default="cuda",
                    help="device to run on: 'cuda' (the default; raises "
                         "without a GPU) or 'cpu'")
@@ -147,9 +156,19 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
     args = build_parser().parse_args(argv)
+    joined = args.distributed and not D.initialized()
     if args.distributed:
-        raise NotImplementedError("--distributed: multi-process training is "
-                                  "not ported yet")
+        # one process per device, from torchrun's variables (NCCL on
+        # cuda, gloo on cpu); the coach shards over the group
+        D.initialize(device=args.device)
+    try:
+        _run(args)
+    finally:
+        if joined:
+            D.shutdown()
+
+
+def _run(args):
     coach = Coach(args_to_config(args), device=args.device)
     start_iter = 1
     if args.load_folder_file:

@@ -63,17 +63,25 @@ def _build_search(mcfg, env_cfg, net, device):
 
 class MCTSPlayer:
     """Single-board player over the batched search (B=1), on the game's
-    device."""
+    device.  It searches under the rules of the game it is bound to
+    (``self.game``), which ``play_games`` sets to the seat's own game."""
 
     def __init__(self, game, net, num_sims, cpuct=1.0, fpu=0.0,
                  temp: float = 0.0):
         self.game = game
         self.net = net
         self.temp = temp
-        self.search = _build_search(
-            M.MCTSConfig(num_sims=num_sims, cpuct=cpuct, fpu=fpu), game.cfg,
-            net, game.device)
+        self.mcfg = M.MCTSConfig(num_sims=num_sims, cpuct=cpuct, fpu=fpu)
+        self._searches = {}                # env config -> its search
         self._gen = torch.Generator(device=game.device).manual_seed(0)
+
+    @property
+    def search(self):
+        cfg = self.game.cfg
+        if cfg not in self._searches:
+            self._searches[cfg] = _build_search(self.mcfg, cfg, self.net,
+                                                self.game.device)
+        return self._searches[cfg]
 
     def play(self, board) -> int:
         res = self.search(self.net, torch.as_tensor(
@@ -109,18 +117,34 @@ def play_games(game, players, num_games, record_dir=None, verbose=False,
     """Sequential host arena over the Game adapter; seats follow the
     reference's 1 2 2 1 alternation (Arena.py:195-202).  ``token_limits``
     optionally handicaps each seat's gem-holding limit (reference
-    Arena.py:102-116).  Returns (wins_per_agent, draws, score_sums)."""
+    Arena.py:102-116): the agent at a seat chooses on that seat's game
+    (its ``game`` is rebound for the move and restored at the end), so a
+    handicapped seat only picks moves its own limit allows.  The JAX pit
+    lets every agent choose on the shared game, where an 8-token seat can
+    pick a move its own game rejects.  Returns (wins_per_agent, draws,
+    score_sums)."""
     n = game.getNumberOfPlayers()
-    wins = [0] * len(players)
-    draws = 0
-    scores_sum = np.zeros(len(players))
-    pattern = [0, 1, 1, 0]
     seat_games = [game] * n
     if token_limits:
         seat_games = [game if lim == game.cfg.token_limit
                       else SplendorGame(n, token_limit=lim,
                                         device=game.device)
                       for lim in token_limits]
+    homes = [p.game for p in players]
+    try:
+        return _play_games(game, players, num_games, seat_games, record_dir,
+                           verbose)
+    finally:
+        for p, home in zip(players, homes):
+            p.game = home
+
+
+def _play_games(game, players, num_games, seat_games, record_dir, verbose):
+    n = game.getNumberOfPlayers()
+    wins = [0] * len(players)
+    draws = 0
+    scores_sum = np.zeros(len(players))
+    pattern = [0, 1, 1, 0]
     for gi in range(num_games):
         flip = pattern[gi % 4] if len(players) == 2 else gi % len(players)
         # agent controlling seat s this game
@@ -132,6 +156,7 @@ def play_games(game, players, num_games, record_dir=None, verbose=False,
             g = seat_games[player]
             canon = g.getCanonicalForm(board, player)
             agent = players[agent_of_seat[player]]
+            agent.game = g
             a = agent.play(canon)
             valids = g.getValidMoves(canon, 0)
             assert valids[a], f"illegal move {a} from agent at seat {player}"

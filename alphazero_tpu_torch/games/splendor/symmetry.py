@@ -101,13 +101,17 @@ def random_symmetry(cfg: E.SplendorConfig, tier_choice, rsv_raw, state, pi,
 
 
 def batched_random_symmetry(cfg: E.SplendorConfig):
-    """``fn(generator, states, pis, valids)``: one uniformly random symmetry
-    per board, its choices drawn from ``generator``."""
-    def fn(generator, states, pis, valids):
+    """``fn(generator, states, pis, valids, rank=0, world=1)``: one
+    uniformly random symmetry per board, its choices drawn from
+    ``generator``.  With ``world`` > 1 the boards are rank ``rank``'s block
+    of a global batch of ``world`` equal blocks: the choices are drawn for
+    the global batch and this block's rows are kept."""
+    def fn(generator, states, pis, valids, rank=0, world=1):
         B, dev = states.shape[0], states.device
-        tier_choice = torch.randint(0, 4, (B, 3), generator=generator,
-                                    device=dev)
-        rsv_raw = torch.randint(0, 3, (B, cfg.num_players),
-                                generator=generator, device=dev)
+        rows = slice(rank * B, (rank + 1) * B)
+        tier_choice = torch.randint(0, 4, (B * world, 3),
+                                    generator=generator, device=dev)[rows]
+        rsv_raw = torch.randint(0, 3, (B * world, cfg.num_players),
+                                generator=generator, device=dev)[rows]
         return apply_symmetry(cfg, states, pis, valids, tier_choice, rsv_raw)
     return fn

@@ -27,14 +27,17 @@ float32, with the ``LOW_VALUE`` mask before the policy's log-softmax.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
 
+from ..parallel.distributed import all_reduce_sum
 from ..utils.checkpoint import tree_items
 from ..utils.device import full_fp32, resolve_device
 
@@ -69,6 +72,8 @@ class FlaxBatchNorm(nn.BatchNorm1d):
     statistics moved by ``BN_MOMENTUM`` with that same variance.  Eval mode
     normalizes with the running statistics, as ``BatchNorm1d`` does."""
 
+    dp = None                  # a DataParallel while data_parallel is open
+
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=1.0 - BN_MOMENTUM)
 
@@ -76,8 +81,16 @@ class FlaxBatchNorm(nn.BatchNorm1d):
         if not self.training:
             return super().forward(x)
         dims = [0] + list(range(2, x.dim()))
-        mean = x.mean(dims)
-        var = ((x * x).mean(dims) - mean * mean).clamp(min=0.0)
+        if self.dp is None:
+            mean, msq = x.mean(dims), (x * x).mean(dims)
+        else:
+            # the statistics of the global batch: per-feature sums over
+            # every rank's rows, with the gradient through the reduction
+            sums = all_reduce_sum(torch.cat([x.sum(dims), (x * x).sum(dims)]),
+                                  self.dp.group)
+            mean, msq = (sums / (x.numel() // x.shape[1]
+                                 * self.dp.world)).chunk(2)
+        var = (msq - mean * mean).clamp(min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
             self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
@@ -123,9 +136,36 @@ def _flat_features(w: int, channels: int) -> int:
     return 2 * (w // 2) + (channels - 5) * (w // 2) + channels * (w - w // 2)
 
 
+class DataParallel(NamedTuple):
+    """One rank of a data-parallel train mode: its ``group``, its ``rank``
+    in it and the group's size ``world``."""
+    group: object
+    rank: int
+    world: int
+
+
+@contextlib.contextmanager
+def data_parallel(net: nn.Module, dp: DataParallel):
+    """While open, ``net``'s train mode on this rank's rows computes as the
+    single net on the global batch (the ``dp.world`` ranks' equal blocks of
+    rows in rank order): BatchNorm normalizes with the global batch's
+    statistics, and dropout draws the global batch's mask from the
+    generator and keeps this rank's rows."""
+    mods = [net] + [m for m in net.modules() if isinstance(m, FlaxBatchNorm)]
+    for m in mods:
+        m.dp = dp
+    try:
+        yield net
+    finally:
+        for m in mods:
+            m.dp = None
+
+
 class _Net(nn.Module):
     """What both versions share: the config checks, Flax dropout and the
     three heads (``dense_{h}..dense_{h+5}``)."""
+
+    dp = None                  # a DataParallel while data_parallel is open
 
     def __init__(self, cfg: NetConfig, versions):
         super().__init__()
@@ -154,7 +194,13 @@ class _Net(nn.Module):
         if not self.training or rate == 0.0:
             return x
         keep = 1.0 - rate
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        if self.dp is None:
+            u = torch.rand(x.shape, generator=generator, device=x.device)
+        else:
+            b, (r, w) = x.shape[0], self.dp[1:]
+            u = torch.rand((b * w,) + x.shape[1:], generator=generator,
+                           device=x.device)[r * b:(r + 1) * b]
+        mask = u < keep
         return torch.where(mask, x / keep, 0.0)
 
     def _head_outputs(self, x, valid_actions):

@@ -12,7 +12,18 @@ Randomness: ``np.random.default_rng(cfg.seed)`` for the replay sampling
 (the same draws as the JAX coach), a CPU ``torch.Generator`` seeded from
 ``cfg.seed`` for the net's initial weights, and one generator on the
 device, seeded from ``cfg.seed``, for self-play, training and the gate.
-Everything runs on one device; ``use_mesh`` is accepted and has no effect.
+
+Data parallel (``use_mesh``, active when a process group of W > 1 ranks
+is initialized, ``parallel/distributed.py``): W must divide both
+``selfplay_batch`` and ``batch_size`` (the JAX coach instead shrinks its
+mesh to the largest device count that does).  Each rank plays its block
+of every self-play batch on a generator seeded from ``(seed, rank)``, the
+examples are gathered to every rank's replay, and the learner takes each
+rank's rows of the same global minibatches (the same ``np_rng`` and device
+generator on every rank).  Rank 0 plays the gate, on a generator of its
+own, and broadcasts the decision; rank 0 writes the checkpoints,
+``metrics.jsonl`` and the replay file, then ``sync_hosts``.  The
+checkpoint directory must be one that every rank sees.
 """
 
 from __future__ import annotations
@@ -31,6 +42,8 @@ from ..eval import arena as AR
 from ..games.splendor import adapter as A
 from ..games.splendor import env as E
 from ..models import splendor_net as N
+from ..parallel import distributed as D
+from ..parallel import mesh as MP
 from ..search import mcts as M
 from ..utils import checkpoint as CKPT
 from ..utils.device import resolve_device
@@ -111,7 +124,9 @@ class CoachConfig:
     eval_num_sims: int = 0                # 0 -> gate sims
     # minibatch updates per train chunk (0 = one step at a time)
     train_chunk_steps: int = 64
-    use_mesh: bool = True                 # no effect on one device
+    # shard self-play + training over the ranks of the process group, when
+    # it has more than one (no effect in one process)
+    use_mesh: bool = True
     checkpoint_dir: str = "./checkpoints"
     seed: int = 0
 
@@ -127,11 +142,22 @@ class Coach:
                                         width=cfg.net_width)
         self.eval_fn = A.make_eval_fn(self.net_cfg)
         self.np_rng = np.random.default_rng(cfg.seed)
-        self.gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.mesh = None
+        world = D.world_size()
+        if cfg.use_mesh and world > 1:
+            if cfg.selfplay_batch % world or cfg.batch_size % world:
+                raise ValueError(
+                    f"world size {world} must divide selfplay_batch "
+                    f"{cfg.selfplay_batch} and batch_size {cfg.batch_size}")
+            self.mesh = MP.make_mesh()
+            log.info("mesh: sharding over %d ranks", world)
+        self._seed_generators(cfg.seed)
 
         self.train_state = TR.init_train_state(
             self.net_cfg, torch.Generator().manual_seed(cfg.seed),
             self.device)
+        if self.mesh is not None:
+            MP.replicate(self.mesh, self.train_state.net)
         self.train_cfg = TR.TrainConfig(
             learn_rate=cfg.learn_rate, vl_weight=cfg.vl_weight,
             batch_size=cfg.batch_size, epochs=cfg.epochs,
@@ -140,9 +166,9 @@ class Coach:
                                             self.train_cfg)
                           if cfg.val_split > 0 else None)
         self.train_step = TR.make_train_step(self.env_cfg, self.net_cfg,
-                                             self.train_cfg)
+                                             self.train_cfg, self.mesh)
         self.train_chunk = (TR.make_train_chunk(
-            self.env_cfg, self.net_cfg, self.train_cfg)
+            self.env_cfg, self.net_cfg, self.train_cfg, self.mesh)
             if cfg.train_chunk_steps > 0 else None)
 
         sp_cfg = SP.SelfPlayConfig(
@@ -153,7 +179,7 @@ class Coach:
             dirichlet_alpha=cfg.dirichlet_alpha, prior_temp=cfg.prior_temp,
             tree_reuse=cfg.tree_reuse, stage_sims=cfg.stage_sims)
         self.selfplay = SP.SelfPlayEngine(self.env_cfg, self.eval_fn, sp_cfg,
-                                          device=self.device)
+                                          device=self.device, mesh=self.mesh)
 
         gate_sims = cfg.gate_num_sims or cfg.num_sims
         gate_mcfg = M.MCTSConfig(num_sims=gate_sims, cpuct=cfg.cpuct,
@@ -170,6 +196,18 @@ class Coach:
                                    max_per_iter=cfg.max_examples_per_iter)
         self._eval_arena = None        # built lazily on first baseline eval
 
+    def _seed_generators(self, seed: int):
+        """``gen`` from ``seed``; in one process self-play and the gate draw
+        from it too.  Under a mesh, ``gen`` (training) stays the stream
+        every rank shares, self-play draws from ``(seed, rank)`` and the
+        gate from ``(seed, W)``, a stream no rank's self-play uses."""
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.sp_gen = self.gate_gen = self.gen
+        if self.mesh is not None:
+            self.sp_gen = D.rank_generator(seed, D.rank(), self.device)
+            self.gate_gen = D.rank_generator(seed, D.world_size(),
+                                             self.device)
+
     # ------------------------------------------------------------------ API
     @property
     def bundle(self):
@@ -177,6 +215,9 @@ class Coach:
         return self.train_state.net
 
     def _save(self, filename, opt=True, meta=None):
+        """Rank 0 writes the checkpoint (every process, in one)."""
+        if not D.is_primary():
+            return
         params, bstats = N.to_flax(self.train_state.net.state_dict())
         CKPT.save_checkpoint(
             self.cfg.checkpoint_dir, filename, params=params,
@@ -196,7 +237,7 @@ class Coach:
         games_done = 0
         t0 = time.time()
         while games_done < cfg.games_per_iter:
-            it, stats = self.selfplay.run_games(self.bundle, self.gen)
+            it, stats = self.selfplay.run_games(self.bundle, self.sp_gen)
             games_done += stats["games"]
             for s in ("games", "examples", "rollouts"):
                 stats_acc[s] += stats[s]
@@ -261,7 +302,7 @@ class Coach:
         nw = ow = dr = 0
         for r in range(n):
             seats = [self.bundle if p == r else old_bundle for p in range(n)]
-            wins, d = self._gate_match.play(seats, self.gen).tally(
+            wins, d = self._gate_match.play(seats, self.gate_gen).tally(
                 [0 if p == r else 1 for p in range(n)])
             nw += wins[0]
             ow += wins[1]
@@ -299,7 +340,7 @@ class Coach:
             for seat in range(n):
                 agents = [net if p == seat else opp for p in range(n)]
                 groups = [0 if p == seat else 1 for p in range(n)]
-                wins, dr = self._eval_arena.play(agents, self.gen).tally(
+                wins, dr = self._eval_arena.play(agents, self.gate_gen).tally(
                     groups)
                 w += wins[0]
                 l += wins[1]
@@ -312,6 +353,8 @@ class Coach:
         return out
 
     def _append_metrics(self, record: dict):
+        if not D.is_primary():
+            return
         os.makedirs(self.cfg.checkpoint_dir, exist_ok=True)
         path = os.path.join(self.cfg.checkpoint_dir, "metrics.jsonl")
         with open(path, "a") as f:
@@ -330,27 +373,32 @@ class Coach:
         if start_iter > 1:
             # de-correlate the resumed segment from a fresh run's draws
             seq = np.random.SeedSequence([cfg.seed, start_iter])
-            self.gen.manual_seed(int(seq.generate_state(1)[0]))
+            self._seed_generators(int(seq.generate_state(1)[0]))
             self.np_rng = np.random.default_rng(seq)
-        CKPT.save_settings(cfg.checkpoint_dir, dataclasses.asdict(cfg))
-        CKPT.save_code_snapshot(cfg.checkpoint_dir)
+        if D.is_primary():
+            CKPT.save_settings(cfg.checkpoint_dir, dataclasses.asdict(cfg))
+            CKPT.save_code_snapshot(cfg.checkpoint_dir)
         for it in range(start_iter, cfg.num_iters + 1):
             t_iter = time.time()
             log.info("Iter %d: self-play...", it)
             sp_stats = self.self_play_iteration()
             log.info("Iter %d: %d examples, %.0f rollouts/s", it,
                      sp_stats["examples"], sp_stats["rollouts_per_s"])
-            self.replay.save(os.path.join(cfg.checkpoint_dir,
-                                          "checkpoint.examples"))
+            if D.is_primary():
+                self.replay.save(os.path.join(cfg.checkpoint_dir,
+                                              "checkpoint.examples"))
 
             # the previous best plays the gate; training updates the live
             # net in place
             old_bundle = copy.deepcopy(self.bundle)
             self._save("temp.pt")
+            D.sync_hosts("temp.pt")        # every rank may roll back to it
             metrics = self.train_iteration(it)
             log.info("Iter %d: train %s", it, metrics)
 
-            accept, (nw, ow, dr) = self.gate(old_bundle)
+            # rank 0 plays the gate and broadcasts its decision
+            accept, (nw, ow, dr) = D.replicate_from_host0(
+                self.gate(old_bundle) if D.is_primary() else None)
             gate_passed = accept
             if cfg.gate_mode == "always":
                 accept = True
@@ -380,13 +428,14 @@ class Coach:
                 "gate_mode": cfg.gate_mode,
                 "replay_examples": len(self.replay),
             }
-            if cfg.eval_baseline_games > 0:
+            if cfg.eval_baseline_games > 0 and D.is_primary():
                 ev = self.eval_vs_baselines()
                 record.update(ev)
                 log.info("Iter %d: winrate vs random %.2f, vs greedy %.2f",
                          it, ev["winrate_vs_random"], ev["winrate_vs_greedy"])
             record["iter_seconds"] = time.time() - t_iter
             self._append_metrics(record)
+            D.sync_hosts(f"iter {it}")
             if on_iteration:
                 on_iteration(it, sp_stats, metrics, (nw, ow, dr), accept)
 

@@ -30,6 +30,7 @@ import torch
 
 from ..games.splendor import adapter as A
 from ..games.splendor import env as E
+from ..parallel import distributed as D
 from ..search import mcts as M
 from ..utils.device import resolve_device
 from .replay import Iteration
@@ -92,9 +93,24 @@ def sample_actions(counts: torch.Tensor, temp: float,
 
 class SelfPlayEngine:
     def __init__(self, env_cfg: E.SplendorConfig, eval_fn, cfg: SelfPlayConfig,
-                 device="cuda"):
+                 device="cuda", mesh=None):
+        """``mesh``: an optional ``DeviceMesh`` with an 'env' axis
+        (``parallel/mesh.py``).  With it, each rank plays its block of
+        ``cfg.batch_size / W`` boards (W = the axis size, which must divide
+        the batch) with the generator its caller gives it (the coach's
+        comes from ``(seed, rank)``), and ``run_games`` returns every
+        rank's examples, in rank order, and the summed statistics on every
+        rank: W single-process runs of those blocks, with the same
+        generators, gathered."""
         self.device = resolve_device(device)
         self.env_cfg = env_cfg
+        self.mesh = mesh
+        if mesh is not None:
+            _, _, world = D.axis_group(mesh, "env")
+            if cfg.batch_size % world:
+                raise ValueError(f"self-play batch {cfg.batch_size} does not "
+                                 f"split evenly over {world} ranks")
+            cfg = dataclasses.replace(cfg, batch_size=cfg.batch_size // world)
         self.cfg = cfg
         self.n = env_cfg.num_players
         step_fn = A.make_search_step_fn(env_cfg)
@@ -201,6 +217,13 @@ class SelfPlayEngine:
         """Play one batch of games to completion (or the move cap).
 
         Returns ``(Iteration | None, stats dict)``."""
+        it, stats = self.run_local_games(params_bundle, generator, collect)
+        if self.mesh is None:
+            return it, stats
+        return gather_games(self.mesh, it, stats)
+
+    def run_local_games(self, params_bundle, generator=None, collect=True):
+        """``run_games`` of this rank's boards only, nothing gathered."""
         cfg, n, ecfg, dev = self.cfg, self.n, self.env_cfg, self.device
         B = cfg.batch_size
         max_moves = cfg.max_moves or ecfg.max_moves
@@ -300,6 +323,23 @@ class SelfPlayEngine:
         pi = counts_h / np.maximum(counts_h.sum(1, keepdims=True), 1e-9)
         collected.append((states[sel].cpu().numpy(), pi.astype(np.float16), vm,
                           q[sel].cpu().numpy(), int(player), idx))
+
+
+def gather_games(mesh, it: Iteration | None, stats: dict):
+    """Every rank's ``(Iteration | None, stats)`` of one ``run_games``
+    call, gathered on every rank: the examples concatenated in rank order,
+    the games, rollouts and examples summed, ``avg_moves`` over all
+    games."""
+    parts = D.gather_objects((it, stats), mesh)
+    its = [i for i, _ in parts if i is not None]
+    total = {k: sum(st[k] for _, st in parts)
+             for k in ("games", "rollouts", "examples")}
+    total["avg_moves"] = sum(st["avg_moves"] * st["games"]
+                             for _, st in parts) / total["games"]
+    if not its:
+        return None, total
+    return Iteration(*(np.concatenate([getattr(i, f.name) for i in its])
+                       for f in dataclasses.fields(Iteration))), total
 
 
 def finalize_examples(collected, results: np.ndarray,

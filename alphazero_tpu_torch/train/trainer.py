@@ -19,14 +19,17 @@ choices come from a ``torch.Generator``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..games.splendor import env as E
 from ..games.splendor import symmetry as SYM
 from ..models import splendor_net as N
+from ..parallel import distributed as D
 from . import losses as L
 
 _ADAM = dict(betas=(0.9, 0.999), eps=1e-8)
@@ -129,48 +132,125 @@ def _targets(net_cfg: N.NetConfig, pi, batch):
                                        net_cfg.max_score_diff)}
 
 
-def make_train_step(env_cfg: E.SplendorConfig, net_cfg: N.NetConfig,
-                    cfg: TrainConfig):
-    """``step(state, batch, lr, vlw, generator) -> (state, metrics)``."""
-    sym_fn = SYM.batched_random_symmetry(env_cfg) if cfg.augment else None
+def _all_reduce_grads(params, group, world: int):
+    """Every rank's gradients summed and divided by ``world``, in one
+    collective: the gradient of the global mean loss, equal on every
+    rank."""
+    grads = [p.grad for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    flat /= world
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
 
-    def train_step(state: TrainState, batch, lr, vlw, generator=None):
-        """One update on ``batch`` (numpy or tensors); ``vlw`` is the
-        value-loss weight.  Returns ``(state, metrics)`` with the metrics
-        as 0-dim tensors on the device."""
-        dev = next(state.net.parameters()).device
-        b = _device_batch(batch, dev)
+
+def _global_metrics(metrics, v, group, world: int):
+    """The global batch's metrics from every rank's: the means over equal
+    blocks of rows are the means of the ranks' means; ``v_out_std`` is the
+    global population std, from the global mean."""
+    keys = [k for k in metrics if k != "v_out_std"]
+    v = v.detach()
+    sums = torch.stack([metrics[k].detach() for k in keys] + [v.sum()])
+    dist.all_reduce(sums, group=group)
+    n = v.numel() * world
+    dev2 = ((v - sums[-1] / n) ** 2).sum()
+    dist.all_reduce(dev2, group=group)
+    out = dict(zip(keys, sums[:-1] / world))
+    out["v_out_std"] = torch.sqrt(dev2 / n)
+    return out
+
+
+def _data_parallel(mesh, axis):
+    return None if mesh is None else N.DataParallel(*D.axis_group(mesh,
+                                                                  axis))
+
+
+def _rows(batch, dp, axis: int = 0):
+    """Each column, or with ``dp`` this rank's block of its rows along
+    ``axis``."""
+    if dp is None:
+        return {k: batch[k] for k in _BATCH_KEYS}
+
+    def take(x):
+        rows = D.rows_of(x.shape[axis], dp.rank, dp.world)
+        return x[(slice(None),) * axis + (rows,)]
+    return {k: take(batch[k]) for k in _BATCH_KEYS}
+
+
+def _make_step_body(env_cfg, net_cfg, cfg: TrainConfig, dp):
+    """``body(state, b, lr, vlw, generator)`` on a batch ``b`` of tensors
+    on the device: this rank's rows when ``dp`` is given."""
+    sym_fn = SYM.batched_random_symmetry(env_cfg) if cfg.augment else None
+    shard = {} if dp is None else dict(rank=dp.rank, world=dp.world)
+
+    def body(state: TrainState, b, lr, vlw, generator=None):
         boards, pi_t, valids = b["boards"], b["pi"], b["valids"]
         if sym_fn is not None:
-            boards, pi_t, valids = sym_fn(generator, boards, pi_t, valids)
+            boards, pi_t, valids = sym_fn(generator, boards, pi_t, valids,
+                                          **shard)
         targets = _targets(net_cfg, pi_t, b)
-        outputs, _ = N.apply_train(state.net, boards.to(torch.float32),
-                                   valids, generator)
-        loss, metrics = L.total_loss(outputs, targets, vlw)
-        state.opt.zero_grad(set_to_none=True)
-        loss.backward()
+        with (contextlib.nullcontext() if dp is None
+              else N.data_parallel(state.net, dp)):
+            outputs, _ = N.apply_train(state.net, boards.to(torch.float32),
+                                       valids, generator)
+            loss, metrics = L.total_loss(outputs, targets, vlw)
+            state.opt.zero_grad(set_to_none=True)
+            loss.backward()
+        if dp is not None:
+            _all_reduce_grads(list(state.net.parameters()), dp.group,
+                              dp.world)
+            metrics = _global_metrics(metrics, outputs[1], dp.group, dp.world)
         for group in state.opt.param_groups:
             group["lr"] = float(lr)
         state.opt.step()
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 
+    return body
+
+
+def make_train_step(env_cfg: E.SplendorConfig, net_cfg: N.NetConfig,
+                    cfg: TrainConfig, mesh=None, axis="env"):
+    """``step(state, batch, lr, vlw, generator) -> (state, metrics)``: one
+    update on ``batch`` (numpy or tensors); ``vlw`` is the value-loss
+    weight; the metrics are 0-dim tensors on the device.
+
+    With a ``mesh`` (``parallel/distributed.py``) the step is this rank's
+    part of one data-parallel step: every rank passes the same global
+    ``batch`` and the same ``generator`` state, takes its rows of the batch
+    along ``axis``, and draws the symmetry choices and dropout masks for
+    the global batch; BatchNorm normalizes with the global batch's
+    statistics, the gradients are all-reduced and divided by the world
+    size, and the metrics are the global batch's.  The update equals the
+    single-process step on the global batch, up to the order of float
+    sums, on every rank alike."""
+    dp = _data_parallel(mesh, axis)
+    body = _make_step_body(env_cfg, net_cfg, cfg, dp)
+
+    def train_step(state: TrainState, batch, lr, vlw, generator=None):
+        dev = next(state.net.parameters()).device
+        return body(state, _device_batch(_rows(batch, dp), dev), lr, vlw,
+                    generator)
+
     return train_step
 
 
 def make_train_chunk(env_cfg: E.SplendorConfig, net_cfg: N.NetConfig,
-                     cfg: TrainConfig):
+                     cfg: TrainConfig, mesh=None, axis="env"):
     """``chunk(state, batches, lrs, vlw, generator) -> (state, metrics)``:
     K minibatch updates on ``batches`` stacked to ``(K, B, ...)`` (moved to
     the device in one copy per column) at the K rates ``lrs``; the metrics
     are the mean over the K steps, or with ``per_step=True`` the ``(K,)``
-    series."""
-    body = make_train_step(env_cfg, net_cfg, cfg)
+    series.  With a ``mesh``, each step is ``make_train_step``'s
+    data-parallel step on the global minibatch ``batches[j]``, and this
+    rank moves only its rows of each to the device."""
+    dp = _data_parallel(mesh, axis)
+    body = _make_step_body(env_cfg, net_cfg, cfg, dp)
 
     def chunk(state: TrainState, batches, lrs, vlw, generator=None,
               per_step: bool = False):
         dev = next(state.net.parameters()).device
-        stacked = _device_batch(batches, dev)
+        stacked = _device_batch(_rows(batches, dp, axis=1), dev)
         ms = []
         for j, lr in enumerate(lrs):
             state, m = body(state, {k: v[j] for k, v in stacked.items()},

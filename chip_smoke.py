@@ -47,15 +47,27 @@ Phases (each raises on failure):
 9. pit: ``cli.pit runs/r6/best.pt greedy --batched -n 4 -m 16``, then a
    batched tournament of r6 and the coach phase's ``temp.pt`` with a
    ratings book, their backups checked the same way;
-10. tooling: the sequential pit (``cli.pit runs/r6/best.pt greedy -n 2
+10. export: r6 to ``.pt2`` on the card (``cli.export``), reloaded and held
+   to the live net at B=1, 7 and 1024, its B=1024 forward timed beside
+   the live net's; r6's ONNX from the port's writer run by
+   ``tests/onnx_mini.py`` on 8 boards against the card's forward;
+11. distributed: a child process under torchrun's variables at W=1 (NCCL)
+   runs the training CLI's ``main`` with ``--distributed`` (8 games at 16
+   sims, 4 gate games at 8 sims, from r6), the sharded train step beside
+   the plain one, the port's dry run (``parallel/dryrun.py``) and
+   ``cli.bench_scaling`` at B=4096; it reports its backup launches and
+   their check against the plain version in a JSON file; this process
+   runs the same CLI iteration without ``--distributed`` and holds the
+   two equal;
+12. tooling: the sequential pit (``cli.pit runs/r6/best.pt greedy -n 2
    -m 16 --record-dir``), ``cli.analyze`` of a recorded game, alpha-beta
    (depth 1, 0.5 s, 2 CPU workers) against r6 under ``--batched``,
    ``cli.train_offline`` for one epoch on phase 4's examples from r6, and
    ``review_position`` of a board-DSL position at 1,600 sims (B=1, M=1601)
    inside ``utils.profiling.trace`` with its ``top_ops``; the entry's
    device time at B=1/M=17 and B=1/M=1601 beside its bound;
-phases 4, 7, 8, 9 and 10 assert one backup launch per simulation their
-searches ran;
+phases 4, 7, 8, 9, 11 and 12 assert one backup launch per simulation
+their searches ran;
 then one JSON line with every kernel's launches, error and times, and the
 last line ``{"ok": true, "device": {...}}``.  It exits non-zero, printing
 no result, when there is no CUDA device.  With ``--out``, the full
@@ -1564,6 +1576,263 @@ def phase_tooling(examples, review_sims=1600):
     return rec
 
 
+def phase_export():
+    """r6 to ``.pt2`` on the card, reloaded and held to the live net at
+    B=1, 7 and 1024; its forward at B=1024 timed beside the live net's;
+    r6's ONNX from the port's writer run by ``tests/onnx_mini.py`` on 8
+    boards against the card's forward."""
+    import numpy as np
+    import torch
+    from alphazero_tpu_torch.cli import export as X
+    from alphazero_tpu_torch.compat import onnx_export as OX
+    from alphazero_tpu_torch.games.splendor import env as E
+    from alphazero_tpu_torch.models import splendor_net as N
+    from tests import onnx_mini
+    t_phase = time.perf_counter()
+    cfg = E.SplendorConfig(num_players=2)
+    net = _r6_net(cfg, "cuda")
+    r6 = os.path.join(ROOT, "runs", "r6", "best.pt")
+    with tempfile.TemporaryDirectory() as tmp:
+        pt2 = os.path.join(tmp, "r6.pt2")
+        t0 = time.perf_counter()
+        X.export_checkpoint(r6, pt2, device="cuda")
+        export_s = time.perf_counter() - t0
+        fn = X.load_exported(pt2)
+        diffs = {B: X.check_roundtrip(fn, net, cfg, batches=(B,))
+                 for B in (1, 7, 1024)}
+        if max(diffs.values()) > 1e-5:
+            raise AssertionError(f".pt2 vs the live net: {diffs}")
+        g = torch.Generator(device="cuda").manual_seed(5)
+        boards = E.initial_state(cfg, 1024, g, "cuda")
+        valids = E.valid_moves(cfg, boards, 0)
+        x = boards.to(torch.float32)
+
+        def live():
+            N.apply_inference(net, x, valids)
+
+        def artifact():
+            with torch.inference_mode():
+                fn(x, valids)
+        times = {}
+        for name, f in (("live", live), ("pt2", artifact), ("pt2", artifact),
+                        ("live", live)):
+            for _ in range(3):
+                f()
+            times.setdefault(name, []).append(_time_host_ms(f, reps=20))
+
+        onnx = os.path.join(tmp, "r6.onnx")
+        OX.export_net(net, onnx)
+        model = onnx_mini.load_model(onnx)
+        with torch.inference_mode():
+            log_pi, v, log_sd = net(x[:8], valids[:8])
+        pi_o, v_o, sd_o = onnx_mini.run_model(
+            model, {"board": x[:8].cpu().numpy(),
+                    "valid_actions": valids[:8].cpu().numpy()})
+        onnx_err = [float(np.abs(a - b.cpu().numpy()).max())
+                    for a, b in ((pi_o, log_pi), (v_o, v), (sd_o, log_sd))]
+        valid8 = valids[:8].cpu().numpy()
+        onnx_err[0] = float(np.abs(pi_o - log_pi.cpu().numpy())[valid8].max())
+        if onnx_err[0] > 1e-3 or onnx_err[1] > 1e-4 or onnx_err[2] > 1e-3:
+            raise AssertionError(f"ONNX (onnx_mini) vs the card: {onnx_err}")
+        sizes = {"pt2_bytes": os.path.getsize(pt2),
+                 "onnx_bytes": os.path.getsize(onnx)}
+    ms = {k: min(v) for k, v in times.items()}
+    rec = {"export_s": export_s, "max_abs_diff": diffs, "forward_ms_b1024": ms,
+           "forward_ms_b1024_reps": times, "onnx_mini_err": onnx_err,
+           **sizes, "seconds": time.perf_counter() - t_phase}
+    print(f"export: r6 -> .pt2 on the card in {export_s:.2f} s; reloaded vs "
+          f"the live net max |diff| at B=1 {diffs[1]:.3g}, B=7 {diffs[7]:.3g}, "
+          f"B=1024 {diffs[1024]:.3g}; forward at B=1024 .pt2 "
+          f"{ms['pt2']:.3f} ms, live net {ms['live']:.3f} ms (best of 2 "
+          f"turns of 20 synchronized calls); ONNX (port writer, "
+          f"{sizes['onnx_bytes']} bytes) in onnx_mini on 8 boards vs the "
+          f"card: log_pi {onnx_err[0]:.3g} (valid moves), v "
+          f"{onnx_err[1]:.3g}, scdiffs {onnx_err[2]:.3g}; phase "
+          f"{rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
+# the distributed iteration, cut below the coach phase (8 games, 16 sims,
+# 4 gate games at 8 sims, one epoch at batch 32) from the r6 weights
+DIST_ARGV = ["-n", "1", "-e", "8", "--selfplayBatch", "8", "-m", "16",
+             "--ratio-fullMCTS", "4", "--prob-fullMCTS", "0.25", "-F",
+             "--arenaCompare", "4", "--gate-sims", "8", "-b", "32", "-p", "1",
+             "-L", os.path.join(ROOT, "runs", "r6", "best.pt")]
+
+
+def _cli_iteration(argv):
+    """``cli.main.main(argv)`` in this process, its searches' backups
+    counted against their simulations and a spread of them held to the
+    plain version; each coach stage timed.  Returns its record."""
+    from alphazero_tpu_torch.cli import main as CLI
+    from alphazero_tpu_torch.ops import fused_backup as FB
+    from alphazero_tpu_torch.train import coach as CO
+    samples, sims, stage = {}, [0], {}
+    saved = {n: getattr(CO.Coach, n)
+             for n in ("self_play_iteration", "train_iteration", "gate")}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            _sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            _sync()
+            stage[name] = time.perf_counter() - t0
+            return out
+        return run
+    for n, f in saved.items():
+        setattr(CO.Coach, n, timed(n, f))
+    try:
+        with tempfile.TemporaryDirectory() as tmp, \
+                _checked_path(sims, samples) as calls:
+            FB.fused_backup.launches = 0
+            t0 = time.perf_counter()
+            CLI.main(argv + ["-C", tmp])
+            _sync()
+            seconds = time.perf_counter() - t0
+            launches = FB.fused_backup.launches
+            with open(os.path.join(tmp, "metrics.jsonl")) as f:
+                record = json.loads(f.readline())
+    finally:
+        for n, f in saved.items():
+            setattr(CO.Coach, n, f)
+    if launches != sims[0]:
+        raise AssertionError(f"{argv}: {launches} backup launches for "
+                             f"{sims[0]} simulations")
+    err, _ = _check_recorded(samples, calls, "the CLI iteration")
+    return {"seconds": seconds, "stage_seconds": stage, "launches": launches,
+            "simulations": sims[0], "backup_max_abs_err": err,
+            "record": record}
+
+
+def _distributed_child(out_path):
+    """The child of ``phase_distributed``: under torchrun's variables at
+    W=1, ``cli.main --distributed`` (NCCL), then the sharded train step
+    beside the plain one, the port's dry run, and ``bench_scaling``."""
+    import torch
+    from alphazero_tpu_torch.cli import bench_scaling as BS
+    from alphazero_tpu_torch.games.splendor import adapter as A
+    from alphazero_tpu_torch.games.splendor import env as E
+    from alphazero_tpu_torch.ops import fused_backup as FB
+    from alphazero_tpu_torch.parallel import distributed as D
+    from alphazero_tpu_torch.parallel import dryrun as DR
+    from alphazero_tpu_torch.parallel import mesh as MP
+    from alphazero_tpu_torch.train import trainer as TR
+    D.initialize(device="cuda")
+    rec = {"backend": torch.distributed.get_backend(),
+           "world": D.world_size()}
+    rec["cli"] = _cli_iteration(DIST_ARGV + ["--distributed"])
+
+    # one train step, sharded (W=1, NCCL) and plain, on the same batch
+    cfg = E.SplendorConfig()
+    net_cfg = A.net_config_for(cfg)
+    tcfg = TR.TrainConfig(batch_size=64)
+    batch = DR.sample_batch(cfg, 64, 0)
+    mesh = MP.make_mesh()
+    steps, params = {}, {}
+    for name, m in (("plain", None), ("nccl", mesh), ("nccl", mesh),
+                    ("plain", None)):
+        st = TR.init_train_state(net_cfg, torch.Generator().manual_seed(0),
+                                 "cuda")
+        step = TR.make_train_step(cfg, net_cfg, tcfg, m)
+
+        def one(st=st, step=step):
+            step(st, batch, 3e-4, 10.0,
+                 torch.Generator(device="cuda").manual_seed(1))
+        one()
+        params[name] = torch.cat([p.detach().reshape(-1)
+                                  for p in st.net.parameters()])
+        steps.setdefault(name, []).append(_time_host_ms(one, reps=20))
+    rec["train_step_ms"] = {k: min(v) for k, v in steps.items()}
+    rec["train_step_ms_reps"] = steps
+    rec["train_step_max_abs_dparam"] = float(
+        (params["nccl"] - params["plain"]).abs().max())
+
+    FB.fused_backup.launches = 0
+    sims, samples = [0], {}
+    with _checked_path(sims, samples) as calls:
+        rec["dryrun"] = DR.dryrun("cuda")
+        _sync()
+    dry_launches = FB.fused_backup.launches
+    if dry_launches != sims[0]:
+        raise AssertionError(f"dry run: {dry_launches} backup launches for "
+                             f"{sims[0]} simulations")
+    err, _ = _check_recorded(samples, calls, "the dry run's self-play")
+    rec["dryrun"].update(launches=dry_launches, backup_max_abs_err=err)
+    rec["bench_scaling"] = BS.main(["--batch-per-device", "4096",
+                                    "--steps", "50"])
+    D.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+
+
+def phase_distributed():
+    """``cli.main --distributed`` in a child process under torchrun's
+    variables at W=1 (NCCL on the card), with the sharded train step, the
+    dry run and ``bench_scaling`` there; the same CLI iteration without
+    ``--distributed`` in this process, held to the child's."""
+    import socket
+    t_phase = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(port), "WORLD_SIZE": "1", "RANK": "0",
+           "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1"}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "child.json")
+        proc = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--distributed-child", out], env=env, cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
+        print(proc.stdout, end="", flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"distributed child exited "
+                                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        with open(out) as f:
+            child = json.load(f)
+    plain = _cli_iteration(DIST_ARGV)
+    dist_rec, plain_rec = child["cli"]["record"], plain["record"]
+    keys = ("selfplay_games", "selfplay_examples", "selfplay_rollouts",
+            "gate_new", "gate_old", "gate_draws", "accepted",
+            "replay_examples")
+    same = {k: (dist_rec[k], plain_rec[k]) for k in keys}
+    loss_rel = (abs(dist_rec["train_loss"] - plain_rec["train_loss"])
+                / abs(plain_rec["train_loss"]))
+    if any(a != b for a, b in same.values()) or loss_rel > 1e-5:
+        raise AssertionError(f"--distributed at W=1 vs without: {same}, "
+                             f"train loss rel diff {loss_rel}")
+    c, ts, bs = child["cli"], child["train_step_ms"], child["bench_scaling"]
+    rec = {"child": child, "plain_cli": plain, "train_loss_rel_diff":
+           loss_rel, "launches": (c["launches"] + child["dryrun"]["launches"]
+                                  + plain["launches"]),
+           "backup_max_abs_err": max(c["backup_max_abs_err"],
+                                     child["dryrun"]["backup_max_abs_err"],
+                                     plain["backup_max_abs_err"]),
+           "seconds": time.perf_counter() - t_phase}
+    st = c["stage_seconds"]
+    print(f"distributed: cli.main --distributed at W=1 ({child['backend']}) "
+          f"in a child: {c['seconds']:.1f} s (self-play "
+          f"{st['self_play_iteration']:.2f} s, train "
+          f"{st['train_iteration']:.2f} s, gate {st['gate']:.2f} s); backup "
+          f"launches {c['launches']} = simulations {c['simulations']}; equal "
+          f"to the same iteration without --distributed ({plain['seconds']:.1f}"
+          f" s; examples {plain_rec['selfplay_examples']}, gate "
+          f"{plain_rec['gate_new']}-{plain_rec['gate_old']}-"
+          f"{plain_rec['gate_draws']}, train loss rel diff {loss_rel:.3g})",
+          flush=True)
+    print(f"distributed: train step B=64 sharded ({child['backend']}, "
+          f"W={child['world']}) {ts['nccl']:.3f}"
+          f" ms vs plain {ts['plain']:.3f} ms (best of 2 turns of 20), max "
+          f"|dparam| {child['train_step_max_abs_dparam']:.3g}; dry run "
+          f"{child['dryrun']['launches']} backup launches, sharded loss rel "
+          f"err {child['dryrun']['train_loss_rel_err']:.3g}; bench_scaling "
+          f"B=4096 {bs['one_device']} env steps/s on one device, "
+          f"{bs['all_devices']} on {bs['devices']}; phase "
+          f"{rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
 def phase_reference():
     """The same small searches on the CPU (plain versions) and the card."""
     import torch
@@ -1604,6 +1873,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the full record to this "
                     "JSON file")
+    ap.add_argument("--distributed-child", metavar="OUT",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1611,6 +1882,11 @@ def main(argv=None) -> int:
               "False)", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    if args.distributed_child:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _distributed_child(args.distributed_child)
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -1625,6 +1901,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as keep:
         coach = phase_coach(keep)
         pit = phase_pit(os.path.join(keep, "temp.pt"))
+    export = phase_export()
+    distributed = phase_distributed()
     tooling = phase_tooling(examples)
     total_s = time.perf_counter() - t0
     print(f"kernel phase {t_kernels:.0f} s of {total_s:.0f} s", flush=True)
@@ -1636,9 +1914,11 @@ def main(argv=None) -> int:
         "replaces": "alphazero_tpu/ops/fused_backup.py:118",
         "launches": (search["launches"] + selfplay["launches"]
                      + coach["launches"] + reuse["launches"]
-                     + pit["launches"] + tooling["launches"]),
+                     + pit["launches"] + distributed["launches"]
+                     + tooling["launches"]),
         "max_abs_err": max(kb["max_abs_err"], coach["backup_max_abs_err"],
                            reuse["max_abs_err"], pit["backup_max_abs_err"],
+                           distributed["backup_max_abs_err"],
                            tooling["backup_max_abs_err"]),
         "ms": kb["ms"],
         "plain_ms": kb["plain_ms"], "bound_ms": kb["bound_ms"],
@@ -1647,7 +1927,8 @@ def main(argv=None) -> int:
               "kernels": kernels,
               "search": search, "selfplay": selfplay, "reuse": reuse,
               "reference": reference, "train": train, "coach": coach,
-              "pit": pit, "tooling": tooling,
+              "pit": pit, "export": export, "distributed": distributed,
+              "tooling": tooling,
               "torch": torch.__version__, "cuda": torch.version.cuda}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

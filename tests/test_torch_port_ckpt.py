@@ -188,6 +188,53 @@ def test_load_network_strict_and_partial(tmp_path):
         assert np.shape(a) == np.shape(b)
 
 
+@pytest.mark.parametrize("version,small,big", [(1, 64, 128), (2, 256, 512)])
+def test_partial_load_slices_batch_stats_and_coach_resumes(tmp_path, version,
+                                                           small, big):
+    """A partial load across a width change slices the running statistics
+    against ``target_batch_stats`` as it slices the params, and a ``Coach``
+    resumed from the narrower checkpoint runs its first forward.  A v1
+    net's statistics are per channel (7 or 1), so 64 -> 128 leaves their
+    shapes as they are; a v2 net's residual BatchNorms are as wide as its
+    trunk, so 256 -> 512 slices them.  (The JAX ``Coach.load_checkpoint``
+    keeps them unsliced, and its first forward fails there.)"""
+    from alphazero_tpu_torch.train import coach as CO
+    narrow = _jcfg(nn_version=version, width=small)
+    state = _port_state(narrow, seed=1)
+    with torch.no_grad():
+        for k, v in N.running_stats(state.net).items():
+            v.copy_(torch.rand(v.shape, generator=torch.Generator()
+                               .manual_seed(len(k))) + 0.5)
+    _save_port(tmp_path, "temp.pt", state)
+    src_bs = N.to_flax(state.net.state_dict())[1]
+    tgt, tgt_bs = N.to_flax(
+        _port_state(dataclasses.replace(narrow, width=big)).net.state_dict())
+    ck = C.load_network(str(tmp_path), "temp.pt", tgt,
+                        target_batch_stats=tgt_bs)
+    assert ck["load_mode"] == "partial"
+    for tree, want in ((ck["params"], tgt), (ck["batch_stats"], tgt_bs)):
+        got = dict(C.tree_items(tree))
+        assert {k: np.shape(v) for k, v in got.items()} == \
+            {k: np.shape(v) for k, v in C.tree_items(want)}
+    sliced = dict(C.tree_items(ck["batch_stats"]))
+    for k, v in C.tree_items(src_bs):
+        sl = tuple(slice(0, min(a, b)) for a, b in zip(v.shape,
+                                                       sliced[k].shape))
+        np.testing.assert_array_equal(sliced[k][sl], v[sl])
+    assert version == 1 or any(np.shape(v) != np.shape(sliced[k])
+                               for k, v in C.tree_items(src_bs))
+
+    coach = CO.Coach(CO.CoachConfig(
+        nn_version=version, net_width=big, selfplay_batch=2, num_sims=4,
+        arena_games=2, checkpoint_dir=str(tmp_path / "run")), device="cpu")
+    coach.load_checkpoint(str(tmp_path), "temp.pt")
+    cfg = E.SplendorConfig()
+    boards = E.initial_state(cfg, 3, torch.Generator().manual_seed(0), "cpu")
+    pi, v, _ = N.apply_inference(coach.train_state.net, boards,
+                                 E.valid_moves(cfg, boards, 0))
+    assert pi.shape == (3, 409) and torch.isfinite(v).all()
+
+
 def test_load_network_fallback_chain(tmp_path):
     cfg = _jcfg()
     tgt, _ = N.to_flax(_port_state(cfg).net.state_dict())

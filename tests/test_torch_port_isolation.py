@@ -44,6 +44,15 @@ MODULES = [
     "alphazero_tpu_torch.cli.examples_tool",
     "alphazero_tpu_torch.cli.train_offline",
     "alphazero_tpu_torch.cli.train_resilient",
+    "alphazero_tpu_torch.cli.export",
+    "alphazero_tpu_torch.cli.bench_scaling",
+    "alphazero_tpu_torch.compat",
+    "alphazero_tpu_torch.compat.torch_import",
+    "alphazero_tpu_torch.compat.onnx_export",
+    "alphazero_tpu_torch.parallel",
+    "alphazero_tpu_torch.parallel.distributed",
+    "alphazero_tpu_torch.parallel.mesh",
+    "alphazero_tpu_torch.parallel.dryrun",
     "alphazero_tpu_torch.utils.checkpoint",
     "alphazero_tpu_torch.utils.device",
     "alphazero_tpu_torch.utils.native",
@@ -92,6 +101,9 @@ def test_entry_points_default_to_cuda():
     from alphazero_tpu_torch.cli import main as CLI
     from alphazero_tpu_torch.cli import pit as PIT
     from alphazero_tpu_torch.cli import train_offline as TO
+    from alphazero_tpu_torch.cli import bench_scaling as BS
+    from alphazero_tpu_torch.cli import export as X
+    from alphazero_tpu_torch.parallel import distributed as D
     from alphazero_tpu_torch.games import game_api as API
     from alphazero_tpu_torch.eval import arena as AR
     from alphazero_tpu_torch.search import mcts as M
@@ -128,6 +140,11 @@ def test_entry_points_default_to_cuda():
         lambda: PIT.main(["random", "greedy"]),
         lambda: API.SplendorGame(),
         lambda: TO.main(["-T", "/nonexistent"]),
+        lambda: X.export_checkpoint(os.path.join(ROOT, "runs", "r6",
+                                                 "best.pt")),
+        lambda: X.main([os.path.join(ROOT, "runs", "r6", "best.pt")]),
+        lambda: BS.main(["--steps", "1"]),
+        lambda: D.initialize("localhost:29500", 1, 0),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):

@@ -7,11 +7,13 @@ chance comes from each API's ``default_rng(seed)``, the greedy player's
 from its own.  Then, 2 players, 2 games (both seat orders):
 
 - random vs greedy gives equal wins, draws and score sums, with
-  ``--record-dir`` pickles that are byte-equal; with ``token_limits=[8,
-  10]`` both give the same tallies or stop with the same assertion (the
-  players choose on the shared 10-token game, so the 8-token seat's agent
-  can pick a move its own game rejects: a fault of the JAX pit that the
-  port keeps, line for line);
+  ``--record-dir`` pickles that are byte-equal;
+- ``token_limits``: the JAX pit lets its players choose on the shared
+  10-token game, so with ``[8, 10]`` the 8-token seat's agent picks a move
+  its own game rejects and the JAX pit stops on game 0.  The port binds
+  each seat's agent to the seat's game (a port-only fix), so it completes
+  both games with every move valid under its seat's limit; with limits the
+  JAX pit completes (``[10, 10]``) both pits give equal tallies;
 - ``MCTSPlayer`` (a width-48 checkpoint, 4 sims) vs greedy gives equal
   tallies; the JAX player builds its net from ``net_config_for``'s default
   width, so the test hands it width 48 (the port reads the meta);
@@ -43,6 +45,10 @@ from tests.test_torch_port_train import _one_thread  # noqa: F401
 @pytest.fixture
 def same_boards(monkeypatch):
     """Both APIs' ``getInitBoard`` hand out the same boards, in order."""
+    _same_boards(monkeypatch)
+
+
+def _same_boards(monkeypatch):
     boards = [init_board(2, 70 + i) for i in range(8)]
     for cls in (JAPI.SplendorGame, API.SplendorGame):
         it = iter(boards)
@@ -67,16 +73,18 @@ def _args(**kw):
     return argparse.Namespace(**{**base, **kw})
 
 
-def both(specs, games=2, record_dirs=(None, None)):
+def both(specs, games=2, record_dirs=(None, None), limits=None):
     """``play_games`` of the same specs in both packages (JAX first), each
-    recording into its entry of ``record_dirs``."""
+    recording into its entry of ``record_dirs``, with ``token_limits=
+    limits``."""
     out = []
     for api, pit, rec in zip((JAPI, API), (JPIT, PIT), record_dirs):
         extra = {} if api is JAPI else {"device": "cpu"}
         game = api.SplendorGame(2, seed=5, **extra)
         players = [pit.create_player(s, game, _args()) for s in specs]
         out.append(pit.play_games(game, players, games,
-                                  record_dir=rec and str(rec)))
+                                  record_dir=rec and str(rec),
+                                  token_limits=limits))
     (jw, jd, js), (w, d, s) = out
     assert (w, d) == (jw, jd)
     np.testing.assert_array_equal(s, js)
@@ -85,24 +93,37 @@ def both(specs, games=2, record_dirs=(None, None)):
 
 
 @pytest.mark.parametrize("mode", ["record", "token_limits"])
-def test_random_vs_greedy(mode, same_boards, tmp_path):
+def test_random_vs_greedy(mode, same_boards, tmp_path, monkeypatch):
     if mode == "token_limits":
-        # the players choose on the shared game (token limit 10), so the
-        # 8-token seat's agent may pick a move that its own game rejects:
-        # both pits stop with the same assertion then
-        outcomes = []
-        for api, pit in ((JAPI, JPIT), (API, PIT)):
-            extra = {} if api is JAPI else {"device": "cpu"}
-            game = api.SplendorGame(2, seed=5, **extra)
-            players = [pit.create_player(s, game, _args())
-                       for s in ("random", "greedy")]
-            try:
-                w, d, sc = pit.play_games(game, players, 2,
-                                          token_limits=[8, 10])
-                outcomes.append((w, d, sc.tolist()))
-            except AssertionError as e:
-                outcomes.append(("AssertionError", str(e)))
-        assert outcomes[0] == outcomes[1]
+        # the JAX pit stops on game 0 (a fault the port does not keep)
+        jgame = JAPI.SplendorGame(2, seed=5)
+        with pytest.raises(AssertionError,
+                           match="illegal move 60 from agent at seat 0"):
+            JPIT.play_games(jgame, [JPIT.create_player(s, jgame, _args())
+                                    for s in ("random", "greedy")], 2,
+                            token_limits=[8, 10])
+        game = API.SplendorGame(2, seed=5, device="cpu")
+        players = [PIT.create_player(s, game, _args())
+                   for s in ("random", "greedy")]
+        seen = []
+        for p in players:
+            play = p.play
+
+            def checked(board, p=p, play=play):
+                a = play(board)
+                # the agent's bound game is its seat's: 8 tokens at seat 0
+                seen.append((p.game.cfg.token_limit,
+                             bool(p.game.getValidMoves(board, 0)[a])))
+                return a
+            p.play = checked
+        w, d, _ = PIT.play_games(game, players, 2, token_limits=[8, 10])
+        assert sum(w) + d == 2
+        assert {lim for lim, _ in seen} == {8, 10}
+        assert all(ok for _, ok in seen)
+        assert all(p.game is game for p in players)
+        # limits the JAX pit completes: both pits agree, from board 70 on
+        _same_boards(monkeypatch)
+        both(["random", "greedy"], limits=[10, 10])
         return
     jdir, pdir = tmp_path / "jax", tmp_path / "port"
     w, d, sc = both(["random", "greedy"], record_dirs=(jdir, pdir))

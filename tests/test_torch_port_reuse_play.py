@@ -13,6 +13,7 @@
 import logging
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -155,3 +156,75 @@ def test_on_move_called_once_per_move_per_observer():
     twice = play([both, both])
     assert len(both.seen) == twice.moves
 
+
+
+
+def _two_noble_boards(cfg, B):
+    """Boards where seat 0 buying card 0 makes two nobles eligible at once,
+    which leaves it a pending noble choice."""
+    from alphazero_tpu_torch.games.splendor import tables as T
+    rng = np.random.default_rng(1)
+    s = E.init_with_uniforms(
+        cfg, torch.from_numpy(rng.random((B, 24), dtype=np.float32)),
+        torch.arange(3)[None].repeat(B, 1) + 3).numpy()
+    rn = cfg.row_nobles
+    s[:, rn], s[:, rn + 1] = T.ALL_NOBLES[0], T.ALL_NOBLES[1]
+    s[:, cfg.row_pcards, :5] = [0, 0, 4, 3, 4]
+    s[:, cfg.row_pgems, 5] = 5
+    s[:, 1], s[:, 2] = [1, 0, 0, 0, 0, 0, 0], [0, 0, 0, 1, 0, 0, 0]
+    return s
+
+
+def _noble_query_roots(ar, rs, cfg, play):
+    """``play(agents)`` of a ``ReusingAgent`` holding both seats that buys
+    card 0 on its first move and then moves as the greedy agent.  Returns,
+    for the call that answers the pending noble choice, whether each
+    board's tree root is the canon it was handed and whether it is the
+    canon of the move before."""
+    greedy = ar.make_greedy_agent(cfg)
+    calls, queries = [], []
+
+    class Logged(ar.ReusingAgent):
+        def __call__(self, canon, rng=None):
+            canon_np = np.asarray(canon)
+            if calls and not calls[-1][1]:
+                # a second call within one move: the noble query
+                root, prev = np.asarray(self.tree.states)[:, 0], calls[-1][0]
+                queries.append([(bool((r == c).all()), bool((r == p).all()))
+                                for r, c, p in zip(root, canon_np, prev)])
+            calls.append((canon_np, False))
+            super().__call__(canon, rng)
+            if len(calls) == 1:
+                return 0 * greedy(canon, rng)
+            return greedy(canon, rng)
+
+        def on_move(self, actions, next_canon):
+            calls[-1] = (calls[-1][0], True)
+            super().on_move(actions, next_canon)
+    agent = Logged(rs, None)
+    play([agent, agent])
+    return queries
+
+
+def test_noble_query_precedes_reroot_as_in_jax():
+    """With ``enable_noble_select``, ``BatchArena.play`` asks the mover's
+    agent for the noble before ``on_move`` re-roots its tree, in both
+    packages: a ``ReusingAgent`` answers the noble query from the tree of
+    the move just played (its root is the pre-move canon, not the
+    noble-pending board it is handed).  The port keeps this behaviour."""
+    B, S = 2, 4
+    kw = dict(num_players=2, enable_noble_select=True, score_win=3)
+    jcfg, cfg = JE.SplendorConfig(**kw), E.SplendorConfig(**kw)
+    start = _two_noble_boards(cfg, B)
+    jrs = JM.build_reusing_search(JM.MCTSConfig(num_sims=S), 2,
+                                  JA.make_uniform_eval_fn(jcfg),
+                                  JA.make_search_step_fn(jcfg),
+                                  JA.make_valid_fn(jcfg))
+    jq = _noble_query_roots(
+        JAR, jrs, jcfg, lambda agents: JAR.BatchArena(jcfg, B).play(
+            agents, jax.random.PRNGKey(2), start_states=jnp.asarray(start)))
+    q = _noble_query_roots(
+        AR, _port_rs(dict(num_sims=S), cfg=cfg), cfg,
+        lambda agents: AR.BatchArena(cfg, B, device="cpu").play(
+            agents, torch.Generator().manual_seed(2), start_states=start))
+    assert q == jq == [[(False, True)] * B]

@@ -153,3 +153,27 @@ def test_resolve_nobles_takes_the_pending_choice():
     assert (flags == 0).all()
     owned = out[[0, 2, 3], cfg.row_pnobles:cfg.row_pnobles + 3, 6]
     assert ((owned > 0).sum(1) == 1).all()
+
+
+def test_explicit_stage_sims_runs_and_equals_off():
+    """An explicit ``stage_sims`` list sums to the full search's sims; the
+    port runs its fast search unstaged, so the run equals the ``"off"``
+    run.  The JAX engine hands the list to its fast search too, whose sims
+    it does not sum to, and raises ``ValueError`` (a JAX fault the port
+    does not keep): its constructor raises."""
+    cfg = E.SplendorConfig()
+    kw = dict(batch_size=4, num_sims=8, ratio_full=4, prob_full=0.5,
+              max_moves=6, chunk_moves=4)
+    runs = {}
+    for stages in ("4,4", "off"):
+        eng = SP.SelfPlayEngine(cfg, A.make_uniform_eval_fn(cfg),
+                                SP.SelfPlayConfig(stage_sims=stages, **kw),
+                                device="cpu")
+        runs[stages] = eng.run_games(None, torch.Generator().manual_seed(3))
+    (it, stats), (it_off, stats_off) = runs["4,4"], runs["off"]
+    assert stats == stats_off and stats["rollouts"] == 160
+    for name in ("boards", "pi", "valids", "winner", "scdiff", "surprise"):
+        np.testing.assert_array_equal(getattr(it, name), getattr(it_off, name),
+                                      err_msg=name)
+    with pytest.raises(ValueError, match="sum to num_sims=2"):
+        _jax_engine(JE.SplendorConfig(), stage_sims="4,4", **kw)
