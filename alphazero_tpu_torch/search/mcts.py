@@ -11,7 +11,9 @@ terminal value vector); ``states [B, M, R, 7]`` and ``parent [B, M]``.
 One search core serves both: it runs on a tree whose board ``b`` holds
 ``n0[b]`` nodes (1 for a fresh root), and each simulation:
 
-1. descends every board from its root with PUCT (plain PyTorch here);
+1. descends every board from its root with PUCT: one launch of the
+   descent kernel (``ops/descent.py::select``), each board running until
+   its path stops;
 2. steps the chosen edge with the env and evaluates the leaf;
 3. backs the value up the recorded path, installs the child pointer and
    writes the expanded node ``n0 + i``'s row: one launch of the
@@ -41,6 +43,7 @@ from typing import Callable, NamedTuple
 import torch
 from torch.profiler import record_function
 
+from ..ops.descent import select as _select
 from ..ops.fused_backup import backprop_packed
 from ..utils.device import resolve_device
 
@@ -52,10 +55,6 @@ _CHILD = 1    # +child id, -id if the child is terminal, 0 = unexpanded |
               # node: seat rotation from the root
 _EN = 2       # edge visits | node: visit count Ns
 _EW = 3       # edge value sum | node: value sum
-
-# the descent checks for "every board stopped" (a host sync) only this often
-_STOP_CHECK_LEVELS = 8
-
 
 @dataclasses.dataclass(frozen=True)
 class MCTSConfig:
@@ -147,85 +146,6 @@ def _normalize_masked(p, valid):
     return p / p.sum(-1, keepdim=True).clamp(min=EPS)
 
 
-def _ucb_pick_rows(cfg: MCTSConfig, prior_r, valid_r, en_r, ew_r, ns, qs,
-                   sim_idx: int, is_root):
-    """PUCT over per-node rows [B, A], in the JAX search's float32 order."""
-    A = prior_r.shape[-1]
-    visited = en_r > 0
-    q_a = ew_r / en_r.clamp(min=1.0)
-    fpu_init = (qs - cfg.fpu if cfg.fpu > 0
-                else torch.full_like(qs, cfg.fpu))[:, None]
-    ns_f = ns[:, None]
-    cp = cfg.cpuct * prior_r
-    u = torch.where(visited,
-                    q_a + cp * torch.sqrt(ns_f) / (1.0 + en_r),
-                    fpu_init + cp * torch.sqrt(ns_f + EPS))
-    u = torch.where(valid_r, u, -torch.inf)
-    best = torch.argmax(u, -1)                      # first maximum
-
-    if cfg.forced_playouts:
-        thresh = torch.floor(torch.sqrt(cfg.k_forced * prior_r
-                                        * float(sim_idx)))
-        force = valid_r & (en_r < thresh) & is_root[:, None]
-        idx = torch.arange(A, device=prior_r.device)[None, :]
-        first_forced = torch.where(force, idx, A).min(-1).values
-        best = torch.where(force.any(-1), first_forced, best)
-    return best
-
-
-def _select(cfg: MCTSConfig, stats, sim_idx: int, depth_cap: int,
-            levels: int):
-    """Batched descent with path recording.
-
-    Returns ``(parent, action, existing, depth, parent_rot, path_p, path_a,
-    path_r)`` exactly as the JAX ``_select`` does.  The JAX loop runs every
-    board in lockstep until all have stopped; a stopped board records only
-    drop sentinels, which are also the buffers' initial values, so running
-    fewer levels gives the same outputs as long as every board stops.
-    ``levels`` is that bound: a tree of ``n`` nodes has no path longer than
-    ``n`` levels, so ``min(n, depth_cap)`` levels for the largest ``n`` of
-    the batch suffice; boards that stop earlier are masked, and the loop
-    ends early when all have stopped (checked every few levels)."""
-    B, M, _, A2 = stats.shape
-    A = A2 - 2
-    dev = stats.device
-    ar = torch.arange(B, device=dev)
-    path_p = torch.full((B, depth_cap), M, dtype=torch.int32, device=dev)
-    path_a = torch.zeros((B, depth_cap), dtype=torch.int32, device=dev)
-    path_r = torch.zeros((B, depth_cap), dtype=torch.int32, device=dev)
-    zeros = torch.zeros(B, dtype=torch.long, device=dev)
-    node, parent, action, existing, prot = (zeros.clone() for _ in range(5))
-    depth = torch.zeros(B, dtype=torch.int32, device=dev)
-    stop = torch.zeros(B, dtype=torch.bool, device=dev)
-
-    for level in range(levels):
-        if level and level % _STOP_CHECK_LEVELS == 0 and bool(stop.all()):
-            break
-        row = stats[ar, node]                                 # [B, 4, A+2]
-        pv = row[:, _PVALID, :A]
-        nn_ = row[:, _EN, A]
-        rot = row[:, _CHILD, A].long()
-        qs = row[:, _EW, A] / (nn_ + 1.0)
-        a = _ucb_pick_rows(cfg, pv.clamp(min=0.0), pv >= 0.0, row[:, _EN, :A],
-                           row[:, _EW, :A], nn_, qs, sim_idx, node == 0)
-        # the sign-packed pointer gives the child and its terminal flag
-        child_raw = row[:, _CHILD, :A].gather(1, a[:, None])[:, 0]
-        child = child_raw.abs().long()
-        now_stop = (child == 0) | (child_raw < 0.0) | (level >= depth_cap - 1)
-
-        path_p[:, level] = torch.where(stop, M, node)
-        path_a[:, level] = torch.where(stop, 0, a)
-        path_r[:, level] = torch.where(stop, 0, rot)
-        depth += (~stop).to(torch.int32)
-        parent = torch.where(stop, parent, node)
-        action = torch.where(stop, action, a)
-        existing = torch.where(stop, existing, child)
-        prot = torch.where(stop, prot, rot)
-        node = torch.where(stop | now_stop, node, child)
-        stop = stop | now_stop
-    return parent, action, existing, depth, prot, path_p, path_a, path_r
-
-
 def _build_core(cfg: MCTSConfig, num_players: int, eval_fn: EvalFn,
                 step_fn: StepFn, valid_fn, keep_cap: int, dev: torch.device):
     """The search over a caller's tree with per-board node counts ``n0``
@@ -288,7 +208,8 @@ def _build_core(cfg: MCTSConfig, num_players: int, eval_fn: EvalFn,
         stats[:, 0, _EW, A] = torch.where(carried, stats[:, 0, _EW, A],
                                           v0[:, 0])
         # board b holds n0[b] + i nodes before sim i and a path never
-        # revisits a node, so the largest count bounds every descent
+        # revisits a node, so the largest count bounds every descent (the
+        # plain descent's loop bound; the kernel's boards run until they stop)
         n_max = int(n0.max())
         # row i: the node sim i expands on each board, n0 + i (made once,
         # so a sim takes its row as a view and launches nothing for it)

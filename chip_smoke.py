@@ -11,10 +11,19 @@ Phases (each raises on failure):
    shapes, and on made-up repeats and collisions, the split contract on
    made-up paths; time each on the device beside its bound and its library
    call, and the backup's host cost with and without operand building;
+   the descent kernel on made-up trees and, in every output, on every
+   simulation of searches at B=1024/M=65, B=256/M=129, B=64/M=129 and
+   B=1/M=1601 (review, no depth cap), its device time at those shapes
+   beside its bound (the larger of its bytes and its latency floor, a
+   dependent L2 load per level, probed with ``ops/csrc/l2_chase.cu``) and
+   the plain version's device and host time;
 3. search: B=1024 boards, 64 sims, root noise on, with the v1 width-128
    net of ``runs/r6/best.pt``; asserts the visit counts and that the
-   backup kernel ran once per simulation; then one profiled search with
-   the backup's operands built by PyTorch ops, for the host's share;
+   backup and descent kernels ran once per simulation; one profiled search
+   (spans, kernels per simulation); the plain descent (``select_plain``,
+   installed by this script) and the kernel in turns, and one profiled
+   search with the plain descent; then one profiled search with the
+   backup's operands built by PyTorch ops, for the host's share;
 4. self-play: the actor at B=256, 128 sims, playout-cap randomization and
    forced playouts, 12 moves;
 5. the same small search on the CPU (plain versions) and on the card, as
@@ -30,12 +39,15 @@ Phases (each raises on failure):
    rollouts/s and the gate tally; asserts one backup launch per simulation
    the coach's searches ran, holds a spread of those launches at each of
    the coach's search shapes exactly to the plain version on the stats and
-   arguments each was given, and checks that the checkpoint written on the
+   arguments each was given (the backup's and the descent's: every path
+   below that checks its backups checks its descents the same way), and
+   checks that the checkpoint written on the
    card loads on the CPU with the card's forward;
 8. reuse: a reusing search at B=1024, 64 sims (capacity 129), r6, for 4
    moves (search, argmax, in-tree next state, reroot), checked (up to 12
-   backup launches per move, with their per-board slots, held exactly to
-   the plain version; one move's reroot equal on the card and the CPU)
+   backup launches per move, with their per-board slots, and 4 descents
+   per move, on the carried trees of moves 2-4 too, held exactly to the
+   plain version; one move's reroot equal on the card and the CPU)
    and then timed (ms per run beside a fresh search of the same roots,
    reroot host and device ms, kept nodes, descent levels); self-play with
    ``tree_reuse=True`` at phase 4's shape, first 4 checked moves (a spread
@@ -66,8 +78,8 @@ Phases (each raises on failure):
    ``review_position`` of a board-DSL position at 1,600 sims (B=1, M=1601)
    inside ``utils.profiling.trace`` with its ``top_ops``; the entry's
    device time at B=1/M=17 and B=1/M=1601 beside its bound;
-phases 4, 7, 8, 9, 11 and 12 assert one backup launch per simulation
-their searches ran;
+phases 3, 4, 7, 8, 9, 11 and 12 assert one backup and one descent launch
+per simulation their searches ran;
 then one JSON line with every kernel's launches, error and times, and the
 last line ``{"ok": true, "device": {...}}``.  It exits non-zero, printing
 no result, when there is no CUDA device.  With ``--out``, the full
@@ -99,7 +111,7 @@ def _sync():
     torch.cuda.synchronize()
 
 
-def _device_ms(fn, name=None, reps=5, warmup=2, per_call=1):
+def _device_ms(fn, name=None, reps=5, warmup=2, per_call=1, counter=None):
     """Device time per unit of work from the profiler's kernel durations:
     each of ``reps`` profiled calls of ``fn`` does ``per_call`` units; the
     result is the median over the calls.  Without ``name`` a call's time is
@@ -110,23 +122,25 @@ def _device_ms(fn, name=None, reps=5, warmup=2, per_call=1):
     tenth may be missing, and a call that lost more is profiled again,
     eight times at most (a call of one launch can lose its only record
     several times in a row, so give ``fn`` a few).  What no record is needed for is held exactly:
-    every profiled call must raise the wrapper's launch count by
-    ``per_call``.  CUDA events around the calls would also count the gaps
-    in which the device waits for the host to launch the next kernel."""
+    every profiled call must raise the wrapper's launch count (``counter``,
+    by default ``fused_backup``'s) by ``per_call``.  CUDA events around the
+    calls would also count the gaps in which the device waits for the host
+    to launch the next kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from alphazero_tpu_torch.ops import fused_backup as FB
+    counter = FB.fused_backup if counter is None else counter
     for _ in range(warmup):
         fn()
     per_unit = []
     for _ in range(reps):
         for _attempt in range(8):
             _sync()
-            before = FB.fused_backup.launches
+            before = counter.launches
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 fn()
                 _sync()
-            launched = FB.fused_backup.launches - before
+            launched = counter.launches - before
             if name is not None and launched != per_call:
                 raise AssertionError(f"{launched} {name!r} launches counted "
                                      f"for {per_call} units")
@@ -564,7 +578,285 @@ def phase_kernels():
         split_bytes=split_bytes, split_library_ms=split_library_ms,
         host_operand_ms=host_operand_ms, host_entry_ms=host_entry_ms,
         live_levels_mean=live.mean().item(), live_levels_max=int(live.max()))
+    out["descent"] = _descent_kernel_phase(g)
     return out
+
+
+DESCENT_OUTPUTS = ("parent", "action", "existing", "depth", "parent_rot",
+                   "path_p", "path_a", "path_r")
+
+# the descent's replayed searches, (B, S, kind, keep every n-th sim's tree
+# for timing): the main path's search, self-play's full search at its batch
+# and at its PCR share (forced playouts, depth cap 64), and review (B=1,
+# no depth cap)
+DESCENT_SHAPES = ((1024, 64, "search", 8), (256, 128, "selfplay", 16),
+                  (64, 128, "selfplay", 16), (1, 1600, "review", 100))
+
+
+def _outputs_diff(got, want):
+    """Largest |kernel - plain| over the descent's eight outputs; raises
+    where a dtype or shape differs."""
+    worst = 0.0
+    for name, a, b in zip(DESCENT_OUTPUTS, got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"descent {name}: kernel {a.dtype} "
+                                 f"{tuple(a.shape)}, plain {b.dtype} "
+                                 f"{tuple(b.shape)}")
+        if a.numel() and not bool((a == b).all()):
+            worst = max(worst, float((a.long() - b.long()).abs().max()))
+    return worst
+
+
+def _made_up_trees(g, dev):
+    """Descent cases a search rarely gives, as ``(cfg, stats, sim_idx,
+    depth_cap)``: random child pointers (some terminal, some -0.0, cycles
+    that run to the cap), priors and values on coarse grids (ties in u),
+    rows with one prior on every valid edge and no visits (exact ties),
+    all-invalid rows at the root and below, fpu > 0, = 0 and < 0, forced
+    playouts on and off, caps of 0, 1 and 6 levels, and rows of 700 edges
+    (two of the kernel's column tiles)."""
+    import torch
+    from alphazero_tpu_torch.ops import descent as D
+    from alphazero_tpu_torch.search import mcts as M
+
+    def r(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    def ri(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev).float()
+
+    def tree(B, Mx, A, p_child):
+        st = torch.zeros((B, Mx, 4, A + 2), device=dev)
+        shape = (B, Mx, A)
+        st[:, :, D.PVALID, :A] = torch.where(r(*shape) < 0.3, -1.0,
+                                             ri(0, 8, *shape) / 8)
+        en = ri(0, 5, *shape) * (r(*shape) < 0.6)
+        st[:, :, D.EN, :A] = en
+        st[:, :, D.EW, :A] = en * ri(-2, 3, *shape) / 2
+        sign = torch.where(r(*shape) < 1 / 6, -1.0, 1.0)
+        st[:, :, D.CHILD, :A] = (ri(1, Mx, *shape) * (r(*shape) < p_child)
+                                 * sign)
+        st[:, :, D.EN, A] = ri(0, 60, B, Mx)
+        st[:, :, D.EW, A] = ri(-20, 21, B, Mx) / 4
+        st[:, :, D.CHILD, A] = ri(0, 3, B, Mx)
+        tie = st[1::5, :, D.PVALID, :A]
+        st[1::5, :, D.PVALID, :A] = torch.where(tie >= 0, 0.25, -1.0)
+        st[1::5, :, D.EN, :A] = 0.0
+        st[2::9, 0, D.PVALID, :A] = -1.0
+        st[3::7, 1:, D.PVALID, :A] = -1.0
+        return st
+
+    cases = []
+    for B, Mx, A, fpu, forced, cap, p_child, sim in (
+            (512, 40, 409, 0.25, True, 39, 0.5, 37),
+            (512, 40, 409, -0.1, True, 39, 0.9, 50),
+            (512, 40, 409, 0.0, False, 6, 0.9, 0),
+            (512, 40, 409, 0.3, False, 39, 0.5, 5),
+            (512, 40, 409, 0.0, True, 1, 0.9, 20),
+            (64, 20, 409, 0.25, True, 0, 0.5, 9),
+            (64, 20, 700, 0.25, True, 19, 0.7, 44)):
+        cfg = M.MCTSConfig(cpuct=1.25, fpu=fpu, forced_playouts=forced,
+                           k_forced=0.5)
+        cases.append((cfg, tree(B, Mx, A, p_child), sim, cap))
+    return cases
+
+
+def _descent_search(B, S, kind):
+    """A search of ``DESCENT_SHAPES`` on the card with the r6 net: returns
+    ``(search, net, roots, generator)``."""
+    import torch
+    from alphazero_tpu_torch.games.splendor import adapter as A
+    from alphazero_tpu_torch.games.splendor import board_dsl as BD
+    from alphazero_tpu_torch.games.splendor import env as E
+    from alphazero_tpu_torch.search import mcts as M
+    from alphazero_tpu_torch.train import selfplay as SP
+    cfg = E.SplendorConfig(num_players=2)
+    kw = {}
+    if kind == "search":
+        kw = dict(add_noise=True, dirichlet_alpha=0.2, prior_temp=1.25)
+    elif kind == "selfplay":
+        sp = SP.SelfPlayConfig()
+        kw = dict(cpuct=sp.cpuct, fpu=sp.fpu, forced_playouts=True,
+                  add_noise=True, dirichlet_alpha=sp.dirichlet_alpha,
+                  prior_temp=sp.prior_temp, max_depth=sp.max_depth)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    if kind == "review":
+        roots = torch.as_tensor(BD.spec_to_state(REVIEW_SPEC, 2, 0),
+                                device="cuda")[None]
+    else:
+        roots = E.initial_state(cfg, B, g, device="cuda")
+    search = M.build_search(
+        M.MCTSConfig(num_sims=S, **kw), 2,
+        A.make_eval_fn(A.net_config_for(cfg)), A.make_search_step_fn(cfg),
+        A.make_valid_fn(cfg), device="cuda")
+    return search, _r6_net(cfg, "cuda"), roots, g
+
+
+def _check_descent_search(B, S, kind, every):
+    """One search of ``DESCENT_SHAPES`` whose every descent runs the kernel
+    and the plain version (with the search's level bound) on the same tree,
+    held equal in every output.  Returns the trees of every ``every``-th
+    sim and the last, with their arguments and the kernel's depths, and
+    the largest difference."""
+    from alphazero_tpu_torch.ops import descent as D
+    from alphazero_tpu_torch.search import mcts as M
+    search, net, roots, g = _descent_search(B, S, kind)
+    kept, worst, calls = [], [0.0], [0]
+    real = M._select
+
+    def checked(cfg, stats, i, cap, levels):
+        got = D.select(cfg, stats, i, cap, levels)
+        want = D.select_plain(cfg, stats, i, cap, levels)
+        worst[0] = max(worst[0], _outputs_diff(got, want))
+        calls[0] += 1
+        if i % every == 0 or i == S - 1:
+            kept.append((cfg, stats.clone(), i, cap, levels, got[3].clone()))
+        return got
+    M._select = checked
+    try:
+        search(net, roots, generator=g)
+        _sync()
+    finally:
+        M._select = real
+    if calls[0] != S:
+        raise AssertionError(f"{calls[0]} descents for {S} simulations")
+    return kept, worst[0]
+
+
+def _chase(nxt, steps):
+    """``ops/csrc/l2_chase.cu``: one thread follows ``steps`` links of the
+    index chain ``nxt`` (int32 on the card, every entry an index of it)."""
+    import ctypes
+    import torch
+    from alphazero_tpu_torch.ops import _build
+    launch = _build.load("l2_chase").l2_chase_launch
+    launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p]
+    sink = torch.empty(1, dtype=torch.int32, device=nxt.device)
+    err = launch(nxt.data_ptr(), steps, sink.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"l2_chase launch failed: CUDA error {err}")
+
+
+def _l2_latency_ms():
+    """One dependent L2 load on this card, in ms: ``_chase`` over a random
+    cycle through 2**20 int32 (4 MB, well inside the 50 MB L2, walked once
+    before) for 2**17 links, timed with CUDA events (one launch of ~20 ms:
+    the launch's own cost is lost in it); median of 3."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(3)
+    N, steps = 1 << 20, 1 << 17
+    perm = torch.randperm(N, generator=g, device="cuda")
+    nxt = torch.empty(N, dtype=torch.int32, device="cuda")
+    nxt[perm] = perm.roll(-1).int()
+    _chase(nxt, N)
+    times = []
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        _chase(nxt, steps)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times) / steps
+
+
+def _descent_times(kept, l2_ms):
+    """The kernel's device ms per launch on the kept trees, the plain
+    version's device ms and synchronized host ms per call, and the least
+    time ``bound_ms``, the largest of three: bytes (per board, per level
+    visited, the three edge lanes, three node floats and the child float
+    read, and the outputs written once) at 3.35 TB/s, 6 float operations
+    per edge visited at 67 TFLOP/s (those two are ``work_bound_ms``, the
+    kernels line's bound), and the latency floor, one dependent L2 load per
+    level of the deepest path; means over the kept launches."""
+    from alphazero_tpu_torch.ops import descent as D
+    n = len(kept)
+    # the profiler may lose a tenth of the records of one profiled call, so
+    # each call launches the kernel on the kept trees in turn 64 times or more
+    rounds = -(-64 // n)
+
+    def kernel():
+        for _ in range(rounds):
+            for cfg, st, i, cap, lv, _ in kept:
+                D.select(cfg, st, i, cap, lv)
+
+    def plain():
+        for cfg, st, i, cap, lv, _ in kept:
+            D.select_plain(cfg, st, i, cap, lv)
+    out = {"ms": _device_ms(kernel, "descent_kernel", per_call=rounds * n,
+                            counter=D.select),
+           "plain_ms": _device_ms(plain, warmup=1, per_call=n),
+           "plain_host_ms": _time_host_ms(plain, reps=3) / n}
+    nbytes = ops = floor = levels = deepest = 0.0
+    for _, st, _, cap, _, depth in kept:
+        B, A = st.shape[0], st.shape[3] - 2
+        lv, dp = int(depth.sum()), int(depth.max())
+        nbytes += lv * (3 * A * 4 + 16) + B * (4 * 8 + 4 + 3 * cap * 4)
+        ops += lv * A * 6
+        floor += dp * l2_ms
+        levels += lv / B
+        deepest = max(deepest, dp)
+    work_ms, work_by = _bound(nbytes / n, ops / n)
+    bound_ms, bound_by = max((work_ms, work_by), (floor / n, "latency"))
+    out.update(bound_ms=bound_ms, bound_by=bound_by, work_bound_ms=work_ms,
+               work_bound_by=work_by, bytes=nbytes / n,
+               latency_floor_ms=floor / n, mean_levels=levels / n,
+               deepest=deepest, launches_timed=n)
+    return out
+
+
+def _descent_kernel_phase(g):
+    """The descent kernel against ``select_plain`` on the card: made-up
+    trees, then every simulation of a search at each of ``DESCENT_SHAPES``;
+    its device time at those shapes beside its bound and the plain
+    version's times."""
+    import torch
+    from alphazero_tpu_torch.ops import descent as D
+    dev = torch.device("cuda")
+    worst, capped, n_cases = 0.0, 0, 0
+    for cfg, st, sim, cap in _made_up_trees(g, dev):
+        got = D.select(cfg, st, sim, cap, cap)
+        want = D.select_plain(cfg, st, sim, cap, cap)
+        worst = max(worst, _outputs_diff(got, want))
+        capped += int((got[3] == cap).sum()) if cap else 0
+        n_cases += 1
+    print(f"descent made-up trees ({n_cases} cases, {capped} boards at their "
+          f"depth cap): max |kernel - plain| = {worst:.3g} over all outputs",
+          flush=True)
+    if worst != 0.0:
+        raise AssertionError(f"descent made-up case disagrees: {worst}")
+    l2_ms = _l2_latency_ms()
+    print(f"dependent L2 load latency {l2_ms * 1e6:.1f} ns (l2_chase over "
+          f"2**17 links)", flush=True)
+    shapes, err = {}, worst
+    for B, S, kind, every in DESCENT_SHAPES:
+        kept, e = _check_descent_search(B, S, kind, every)
+        M_ = kept[0][1].shape[1]
+        print(f"descent replay {kind} B={B} M={M_} depth cap {kept[0][3]}: "
+              f"{S} sims held to plain, max |kernel - plain| = {e:.3g}",
+              flush=True)
+        if e != 0.0:
+            raise AssertionError(f"descent replay B={B} disagrees: {e}")
+        err = max(err, e)
+        t = shapes[f"B{B}_M{M_}"] = _descent_times(kept, l2_ms)
+        print(f"descent B={B} M={M_}: kernel {t['ms'] * 1e3:.3f} us/launch "
+              f"(bound {t['bound_ms'] * 1e3:.4f} us by {t['bound_by']}: "
+              f"{t['bytes']:.0f} bytes and their operations "
+              f"{t['work_bound_ms'] * 1e3:.4f} us, {t['work_bound_by']}; "
+              f"latency floor {t['latency_floor_ms'] * 1e3:.4f} us at "
+              f"{t['deepest']:.0f} levels deepest; mean levels "
+              f"{t['mean_levels']:.3f}), plain "
+              f"device {t['plain_ms'] * 1e3:.1f} us, host "
+              f"{t['plain_host_ms'] * 1e3:.1f} us per call", flush=True)
+        del kept
+        torch.cuda.empty_cache()
+    main = shapes["B1024_M65"]
+    return dict(max_abs_err=err, made_up_cases=n_cases, capped=capped,
+                l2_latency_ms=l2_ms, shapes=shapes, **{
+                    k: main[k] for k in ("ms", "plain_ms", "work_bound_ms",
+                                         "work_bound_by", "latency_floor_ms")})
 
 
 def _r6_net(cfg, device):
@@ -616,6 +908,32 @@ def _profile(fn):
             "top_kernels_ms": dict(top)}
 
 
+def _zero_launches():
+    """Set both kernels' launch counts to 0."""
+    from alphazero_tpu_torch.ops import descent as D
+    from alphazero_tpu_torch.ops import fused_backup as FB
+    FB.fused_backup.launches = D.select.launches = 0
+
+
+def _descents():
+    from alphazero_tpu_torch.ops import descent as D
+    return D.select.launches
+
+
+def _check_launches(what, sims, backups, descents):
+    """One backup and one descent launch per simulation ``what`` ran."""
+    if backups != sims or descents != sims or sims == 0:
+        raise AssertionError(f"{what}: {backups} backup and {descents} "
+                             f"descent launches for {sims} simulations")
+
+
+def _plain_select(cfg, stats, sim_idx, depth_cap, levels):
+    """The search's descent as it ran before the kernel: ``select_plain`` on
+    the card (installed as ``mcts._select`` by this script only)."""
+    from alphazero_tpu_torch.ops import descent as D
+    return D.select_plain(cfg, stats, sim_idx, depth_cap, levels)
+
+
 def phase_search(reps=5):
     import torch
     from alphazero_tpu_torch.games.splendor import adapter as A
@@ -625,7 +943,7 @@ def phase_search(reps=5):
     cfg, net, search, roots, g = _main_search(B=B, S=S)
     search(net, roots, generator=g)                       # warm-up
     _sync()
-    FB.fused_backup.launches = 0
+    _zero_launches()
     times = []
     for _ in range(reps):
         _sync()
@@ -633,7 +951,7 @@ def phase_search(reps=5):
         res = search(net, roots, generator=g)
         _sync()
         times.append(time.perf_counter() - t0)
-    launches = FB.fused_backup.launches
+    launches, descents = FB.fused_backup.launches, _descents()
     raw = res.raw_counts
     valid = A.make_valid_fn(cfg)(roots)
     if not bool((raw.sum(1) == S).all()):
@@ -642,20 +960,53 @@ def phase_search(reps=5):
         raise AssertionError("visits on invalid root actions")
     if not bool(torch.isfinite(res.q).all()):
         raise AssertionError("non-finite root q")
-    if launches != reps * S:
-        raise AssertionError(f"backup kernel launched {launches} times for "
-                             f"{reps * S} sims")
+    _check_launches("search", reps * S, launches, descents)
     rps = B * S / statistics.median(times)
     print(f"search B={B} S={S}: {rps:.1f} rollouts/s (median of {reps}, "
           f"{statistics.median(times) * 1e3:.1f} ms/search); backup launches "
-          f"{launches}", flush=True)
+          f"{launches}, descent launches {descents}", flush=True)
     prof = _profile(lambda: search(net, roots, generator=g))
     spans = ", ".join(f"{k} {v:.1f}" for k, v in
                       sorted(prof["spans_host_ms"].items()))
     print(f"search profile: wall {prof['wall_ms']:.1f} ms; host ms per span: "
           f"{spans}; device busy {prof['device_busy_ms']} ms, idle share "
-          f"{prof['device_idle_share']}, {prof['kernel_launches']} kernels",
-          flush=True)
+          f"{prof['device_idle_share']}, {prof['kernel_launches']} kernels "
+          f"({prof['kernel_launches'] / S:.2f} per simulation)", flush=True)
+    # the plain descent and the kernel in turns (plain, kernel, kernel,
+    # plain; two searches each), then one profiled search with the plain
+    # descent, for its span and kernels
+    turns, real_select = {"plain": [], "kernel": []}, M._select
+    for name in ("plain", "kernel", "kernel", "plain"):
+        M._select = _plain_select if name == "plain" else real_select
+        try:
+            before = _descents()
+            for _ in range(2):
+                _sync()
+                t0 = time.perf_counter()
+                search(net, roots, generator=g)
+                _sync()
+                turns[name].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            M._select = real_select
+        if (_descents() - before) != (2 * S if name == "kernel" else 0):
+            raise AssertionError(f"{name} turn: {_descents() - before} "
+                                 f"descent launches")
+    M._select = _plain_select
+    try:
+        prof_plain = _profile(lambda: search(net, roots, generator=g))
+    finally:
+        M._select = real_select
+    plain_ms, kernel_ms = (statistics.median(turns[k])
+                           for k in ("plain", "kernel"))
+    print(f"search B={B} S={S} in turns: plain descent {plain_ms:.1f} ms, "
+          f"descent kernel {kernel_ms:.1f} ms per search (medians of 4; "
+          f"{plain_ms / kernel_ms:.3f}x); profiled: mcts.descent host span "
+          f"{prof_plain['spans_host_ms']['mcts.descent']:.1f} / "
+          f"{prof['spans_host_ms']['mcts.descent']:.1f} ms, "
+          f"{prof_plain['kernel_launches'] / S:.2f} / "
+          f"{prof['kernel_launches'] / S:.2f} kernels per simulation, idle "
+          f"share {prof_plain['device_idle_share']} / "
+          f"{prof['device_idle_share']}", flush=True)
     # One profiled search with the backup's operands built by PyTorch ops,
     # as before the kernel built them, for the span's host time.
     M.backprop_packed = _operand_backprop
@@ -670,9 +1021,10 @@ def phase_search(reps=5):
           f"search, {prof_ops['kernel_launches']} / "
           f"{prof['kernel_launches']} kernels", flush=True)
     return {"rollouts_per_s": rps, "search_ms": statistics.median(times) * 1e3,
-            "launches": launches, "reps": reps, "batch": B, "sims": S,
-            "times_s": times, "profile": prof,
-            "operand_building": {"profile": prof_ops}}
+            "launches": launches, "descents": descents, "reps": reps,
+            "batch": B, "sims": S, "times_s": times, "profile": prof,
+            "operand_building": {"profile": prof_ops},
+            "descent_turns_ms": turns, "plain_descent_profile": prof_plain}
 
 
 class _MaskedVisits(logging.Handler):
@@ -713,17 +1065,18 @@ def _check_reuse_selfplay(net, moves=4):
     samples, sims = {}, [0]
     with _checked_path(sims, samples) as calls:
         _, eng = _selfplay_engine(True, moves)
-        FB.fused_backup.launches = 0
+        _zero_launches()
         eng.run_games(net, torch.Generator(device="cuda").manual_seed(2))
         _sync()
-        launches = FB.fused_backup.launches
-    if launches != sims[0]:
-        raise AssertionError(f"reuse self-play: {launches} backup launches "
-                             f"for {sims[0]} simulations")
+        launches, descents = FB.fused_backup.launches, _descents()
+    _check_launches("reuse self-play", sims[0], launches, descents)
     err, differing = _check_recorded(samples, calls, "reuse self-play")
     if differing == 0:
         raise AssertionError("no recorded reuse self-play backup had slots "
                              "that differ across boards")
+    if not any(r[2] for r in calls["descent"].values()):
+        raise AssertionError("no checked reuse self-play descent ran on a "
+                             "carried tree")
     return err
 
 
@@ -755,7 +1108,7 @@ def phase_selfplay(tree_reuse=False):
     masked = _MaskedVisits()
     SP.log.addHandler(masked)
     try:
-        FB.fused_backup.launches = 0
+        _zero_launches()
         _sync()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -763,13 +1116,11 @@ def phase_selfplay(tree_reuse=False):
                                   .manual_seed(2))
         _sync()
         dt = time.perf_counter() - t0
-        launches = FB.fused_backup.launches
+        launches, descents = FB.fused_backup.launches, _descents()
         peak = torch.cuda.max_memory_allocated()
     finally:
         SP.log.removeHandler(masked)
-    if launches != sims[0]:
-        raise AssertionError(f"backup kernel launched {launches} times for "
-                             f"{sims[0]} simulations in {moves} moves")
+    _check_launches(f"self-play, {moves} moves", sims[0], launches, descents)
     if masked.visits:
         raise AssertionError(f"{masked.visits} root visits on invalid "
                              f"actions were masked")
@@ -784,6 +1135,7 @@ def phase_selfplay(tree_reuse=False):
         raise AssertionError("Iteration shapes")
     rec = {"rollouts_per_s": stats["rollouts"] / dt, "seconds": dt,
            "examples": n, "rollouts": stats["rollouts"], "launches": launches,
+           "descents": descents,
            "simulations": sims[0], "masked_visits": masked.visits,
            "peak_bytes": peak, "backup_max_abs_err": backup_err}
     if tree_reuse:
@@ -794,7 +1146,8 @@ def phase_selfplay(tree_reuse=False):
                                  f"{rec['hit_share']}")
     print(f"self-play B=256 S=128 PCR{' tree reuse' if tree_reuse else ''}: "
           f"{rec['rollouts_per_s']:.1f} rollouts/s, {n} examples in "
-          f"{dt:.2f} s; backup launches {launches} = simulations {sims[0]}; "
+          f"{dt:.2f} s; backup and descent launches {launches} = "
+          f"simulations {sims[0]}; "
           f"masked root visits {masked.visits}; peak memory "
           f"{peak / 2**30:.3f} GiB"
           + (f"; reuse hit share {rec['hit_share']:.4f}" if tree_reuse
@@ -944,11 +1297,57 @@ def _recording_backup(samples, first=4, every=32, cap=12):
     return record, calls
 
 
+def _recording_descent(results, per_search=4, cap=24):
+    """``mcts._select`` that launches the kernel once per call, as the
+    search's own descent does, and at each shape ``(B, M, depth_cap)`` also
+    runs ``select_plain`` on the same stats and arguments for
+    ``per_search`` sims spread over each search (sim ``i`` where ``i + 1``
+    is a multiple of ``num_sims // per_search``), ``cap`` at most per
+    shape, so that later searches (carried trees on a reusing path) are
+    checked too.  ``results[shape]`` holds the calls, the checked calls,
+    those on a carried tree (a root with more visits than the sim index)
+    and the largest difference over the eight outputs."""
+    from alphazero_tpu_torch.ops import descent as D
+
+    def select(cfg, stats, i, depth_cap, levels):
+        got = D.select(cfg, stats, i, depth_cap, levels)
+        r = results.setdefault((stats.shape[0], stats.shape[1], depth_cap),
+                               [0, 0, 0, 0.0])
+        r[0] += 1
+        if (i + 1) % max(1, cfg.num_sims // per_search) == 0 and r[1] < cap:
+            want = D.select_plain(cfg, stats, i, depth_cap, levels)
+            r[1] += 1
+            r[2] += bool((stats[:, 0, D.EN, -2] > i).any())
+            r[3] = max(r[3], _outputs_diff(got, want))
+        return got
+    return select
+
+
+def _report_descents(results, what):
+    """Print ``_recording_descent``'s checks per shape under ``what``;
+    raises unless every shape had a checked call and every check was
+    equal.  Returns the number of checked calls on carried trees."""
+    worst, carried = 0.0, 0
+    for (B, M_, cap), (n, k, c, err) in sorted(results.items()):
+        print(f"descent in {what}, B={B} M={M_} depth cap {cap}: {k} of {n} "
+              f"sims held to select_plain ({c} on carried trees), max "
+              f"|kernel - plain| = {err:.3g}", flush=True)
+        if k == 0:
+            raise AssertionError(f"no descent of {what} checked at B={B} "
+                                 f"M={M_}")
+        worst, carried = max(worst, err), carried + c
+    if worst != 0.0 or not results:
+        raise AssertionError(f"the descents of {what}: max |kernel - plain| "
+                             f"= {worst} over {len(results)} shapes")
+    return carried
+
+
 def _check_recorded(samples, calls, what):
     """The kept backups of ``_recording_backup`` against the plain version
     on the stats and arguments each call was given, printed per shape under
-    ``what``.  Returns the largest difference and the number of kept calls
-    whose slots differ across boards; raises unless the difference is 0."""
+    ``what``, then the descents ``_checked_path`` checked.  Returns the
+    largest difference and the number of kept calls whose slots differ
+    across boards; raises unless every difference is 0."""
     import torch
     from alphazero_tpu_torch.ops import fused_backup as FB
     worst, differing = 0.0, 0
@@ -967,6 +1366,7 @@ def _check_recorded(samples, calls, what):
         differing += diff
     if worst != 0.0:
         raise AssertionError(f"the backups of {what} disagree: {worst}")
+    _report_descents(calls["descent"], what)
     return worst, differing
 
 
@@ -975,10 +1375,13 @@ def _checked_path(sims, samples=None):
     """While open, every search that ``mcts.build_search`` or
     ``mcts.build_reusing_search`` builds adds its ``num_sims`` to
     ``sims[0]`` on each call; with ``samples``, the searches' backup is
-    ``_recording_backup``'s.  Yields the recorder's call counts."""
+    ``_recording_backup``'s and their descent ``_recording_descent``'s.
+    Yields the backup recorder's call counts, with the descent's checks
+    under ``"descent"``."""
     from alphazero_tpu_torch.ops import fused_backup as FB
     from alphazero_tpu_torch.search import mcts as M
-    build, build_rs = M.build_search, M.build_reusing_search
+    build, build_rs, select = (M.build_search, M.build_reusing_search,
+                               M._select)
 
     def counted(fn, n):
         def run(*a, **kw):
@@ -995,12 +1398,14 @@ def _checked_path(sims, samples=None):
     calls = {}
     if samples is not None:
         M.backprop_packed, calls = _recording_backup(samples)
+        calls["descent"] = {}
+        M._select = _recording_descent(calls["descent"])
     M.build_search, M.build_reusing_search = build_counted, build_rs_counted
     try:
         yield calls
     finally:
         M.build_search, M.build_reusing_search = build, build_rs
-        M.backprop_packed = FB.backprop_packed
+        M.backprop_packed, M._select = FB.backprop_packed, select
 
 
 def phase_coach(keep_dir):
@@ -1036,14 +1441,12 @@ def phase_coach(keep_dir):
                                   load_examples=False)
             for name in ("self_play_iteration", "train_iteration", "gate"):
                 setattr(coach, name, timed(name, getattr(coach, name)))
-            FB.fused_backup.launches = 0
+            _zero_launches()
             coach.learn(on_iteration=lambda it, sp, m, g, acc: seen.update(
                 sp=sp, metrics=m, gate=g, accept=acc))
             _sync()
-            launches = FB.fused_backup.launches
-        if launches != sims[0]:
-            raise AssertionError(f"backup kernel launched {launches} times for "
-                                 f"{sims[0]} simulations")
+            launches, descents = FB.fused_backup.launches, _descents()
+        _check_launches("coach", sims[0], launches, descents)
         # the kernel at the coach's own shapes, against its plain version
         backup_err, _ = _check_recorded(samples, calls, "the coach's searches")
         del samples
@@ -1074,17 +1477,20 @@ def phase_coach(keep_dir):
            "rollouts_per_s": sp["rollouts_per_s"], "gate": [nw, ow, dr],
            "accepted": seen["accept"], "train_loss": seen["metrics"]["loss"],
            "simulations": sims[0], "launches": launches,
-           "backup_max_abs_err": backup_err,
+           "descents": descents, "backup_max_abs_err": backup_err,
            "backup_shapes": {f"B{b}_M{m}_S1{s}": n + 1
-                             for (b, m, s), n in sorted(calls.items())},
+                             for (b, m, s), n in sorted(
+                                 kv for kv in calls.items()
+                                 if kv[0] != "descent")},
            "checkpoint": name, "card_vs_cpu_forward_err": errs}
     print(f"coach 1 iteration: self-play {stage['self_play_iteration']:.2f} s "
           f"({sp['examples']} examples, {sp['rollouts_per_s']:.1f} "
           f"rollouts/s), train {stage['train_iteration']:.2f} s (loss "
           f"{seen['metrics']['loss']:.4f}), gate {stage['gate']:.2f} s "
           f"(new-old-draws {nw}-{ow}-{dr}, "
-          f"{'accepted' if seen['accept'] else 'rejected'}); backup launches "
-          f"{launches} = simulations {sims[0]}; {name} on the CPU: forward "
+          f"{'accepted' if seen['accept'] else 'rejected'}); backup and "
+          f"descent launches {launches} = simulations {sims[0]}; {name} on "
+          f"the CPU: forward "
           f"|card - cpu| {max(errs):.3g}", flush=True)
     return rec
 
@@ -1146,8 +1552,9 @@ def phase_reuse():
 
     # checked pass: up to 12 backups per move (the first 4, then every 8th)
     # held to the plain version on the stats and per-board slots each was
-    # given, the descent's levels summed, and the second move's reroot
-    # done again on the CPU
+    # given, 4 descents per move (``_recording_descent``; moves 2-4 on
+    # carried trees) held to ``select_plain``, the descent's levels summed,
+    # and the second move's reroot done again on the CPU
     calls, checked, worst, depth_sum, differing = [0], [0], [0.0], [], [0]
 
     def record(stats, *args):
@@ -1179,19 +1586,30 @@ def phase_reuse():
                                                     (*cpu[0], cpu[1])))
         cpu_check["seconds"] = time.perf_counter() - t0
 
-    FB.fused_backup.launches = 0
-    kept, _ = _reuse_moves(rs, net, roots, moves, record, on_reroot)
+    descents_checked, real_select = {}, M._select
+    M._select = _recording_descent(descents_checked)
+    _zero_launches()
+    try:
+        kept, _ = _reuse_moves(rs, net, roots, moves, record, on_reroot)
+    finally:
+        M._select = real_select
     _sync()
-    checked_launches = FB.fused_backup.launches
-    if checked_launches != moves * S or calls[0] != moves * S:
-        raise AssertionError(f"{checked_launches} backup launches for "
-                             f"{moves * S} simulations")
+    checked_launches, checked_descents = FB.fused_backup.launches, _descents()
+    _check_launches("reusing search", moves * S, checked_launches,
+                    checked_descents)
+    if calls[0] != moves * S:
+        raise AssertionError(f"{calls[0]} recorded backups for {moves * S} "
+                             f"simulations")
     if worst[0] != 0.0 or differing[0] == 0:
         raise AssertionError(f"reusing search backups: max |kernel - plain| "
                              f"= {worst[0]}, {differing[0]} with slots that "
                              f"differ across boards")
     if not cpu_check.get("equal"):
         raise AssertionError("reroot on the card differs from the CPU's")
+    carried = _report_descents(descents_checked, "the reusing search")
+    if carried < moves - 1:
+        raise AssertionError(f"{carried} checked descents of the reusing "
+                             f"search ran on a carried tree")
     levels = torch.stack(depth_sum).float().view(moves, S).sum(1) / (B * S)
     print(f"reuse B={B} S={S} (capacity {rs.capacity}): fused_backup with "
           f"per-board slot tensors: max |kernel - plain| = {worst[0]:.3g} "
@@ -1217,16 +1635,17 @@ def phase_reuse():
                         "device_busy_ms": prof["device_busy_ms"],
                         "kernels": prof["kernel_launches"]})
 
-    FB.fused_backup.launches = 0
+    _zero_launches()
     torch.cuda.reset_peak_memory_stats()
     kept2, run_s = _reuse_moves(rs, net, roots, moves,
                                 on_reroot=timed_reroot)
     _sync()
-    launches = FB.fused_backup.launches
+    launches, descents = FB.fused_backup.launches, _descents()
     peak = torch.cuda.max_memory_allocated()
-    if launches != 2 * moves * S or not torch.equal(kept, kept2):
-        raise AssertionError(f"timed pass: {launches} launches, n_kept "
-                             f"{kept2.tolist()} vs {kept.tolist()}")
+    _check_launches("reuse timed pass", 2 * moves * S, launches, descents)
+    if not torch.equal(kept, kept2):
+        raise AssertionError(f"timed pass: n_kept {kept2.tolist()} vs "
+                             f"{kept.tolist()}")
     per_move = []
     for m in range(moves):
         k = kept[m].float()
@@ -1250,8 +1669,9 @@ def phase_reuse():
     ratio = statistics.median(a / b for a, b in zip(run_s[1:], fresh_s[1:]))
     print(f"reuse search: {carried_ms / S:.2f} ms/sim on carried trees vs "
           f"{fresh_ms / S:.2f} fresh on the same roots (medians of moves "
-          f"2-{moves}; median ratio {ratio:.3f}); backup launches {launches} "
-          f"= simulations of both; peak memory {peak / 2**30:.3f} GiB",
+          f"2-{moves}; median ratio {ratio:.3f}); backup and descent "
+          f"launches {launches} = simulations of both; peak memory "
+          f"{peak / 2**30:.3f} GiB",
           flush=True)
     capacity = rs.capacity
     del rs, fresh, net, roots, kept, kept2
@@ -1263,6 +1683,7 @@ def phase_reuse():
             "moves": per_move, "carried_ms_per_sim": carried_ms / S,
             "fresh_ms_per_sim": fresh_ms / S, "carried_over_fresh": ratio,
             "launches": launches + selfplay["launches"] + cli["launches"],
+            "descents": descents + selfplay["descents"] + cli["descents"],
             "max_abs_err": max(worst[0], selfplay["backup_max_abs_err"],
                                cli["backup_max_abs_err"]),
             "reroot_cpu_equal": True,
@@ -1298,29 +1719,28 @@ def _reuse_cli():
     try:
         with tempfile.TemporaryDirectory() as tmp, \
                 _checked_path(sims, samples) as calls:
-            FB.fused_backup.launches = 0
+            _zero_launches()
             t0 = time.perf_counter()
             CLI.main(["-n", "1", "-e", "4", "--selfplayBatch", "4", "-m", "8",
                       "--arenaCompare", "4", "--gate-sims", "4", "-b", "16",
                       "-p", "1", "-C", tmp, "--tree-reuse"])
             _sync()
             cli_s = time.perf_counter() - t0
-            launches = FB.fused_backup.launches
+            launches, descents = FB.fused_backup.launches, _descents()
     finally:
         CO.log.removeHandler(iter_lines)
         CO.log.setLevel(level)
     lines = iter_lines.lines
     if not any("ACCEPTED" in ln or "REJECTED" in ln for ln in lines):
         raise AssertionError(f"cli.main --tree-reuse logged {lines}")
-    if launches != sims[0]:
-        raise AssertionError(f"cli.main --tree-reuse: {launches} backup "
-                             f"launches for {sims[0]} simulations")
+    _check_launches("cli.main --tree-reuse", sims[0], launches, descents)
     err, _ = _check_recorded(samples, calls, "cli.main --tree-reuse")
-    print(f"cli.main --tree-reuse on the card: {cli_s:.1f} s; backup "
-          f"launches {launches} = simulations {sims[0]}; "
+    print(f"cli.main --tree-reuse on the card: {cli_s:.1f} s; backup and "
+          f"descent launches {launches} = simulations {sims[0]}; "
           + "; ".join(ln[len("Iter 1: "):][:80] for ln in lines), flush=True)
     return {"seconds": cli_s, "log": lines, "launches": launches,
-            "simulations": sims[0], "backup_max_abs_err": err}
+            "descents": descents, "simulations": sims[0],
+            "backup_max_abs_err": err}
 
 
 def phase_pit(coach_temp):
@@ -1334,7 +1754,7 @@ def phase_pit(coach_temp):
     samples, sims = {}, [0]
     with tempfile.TemporaryDirectory() as tmp, \
             _checked_path(sims, samples) as calls:
-        FB.fused_backup.launches = 0
+        _zero_launches()
         t0 = time.perf_counter()
         out = PIT.main([r6, "greedy", "--batched", "-n", "4", "-m", "16"])
         pair_s = time.perf_counter() - t0
@@ -1348,23 +1768,21 @@ def phase_pit(coach_temp):
         with open(os.path.join(tmp, "ratings.json")) as f:
             saved = json.load(f)
         _sync()
-        launches = FB.fused_backup.launches
+        launches, descents = FB.fused_backup.launches, _descents()
     if out["games"] != 4 or out["wins"] + out["losses"] + out["draws"] != 4:
         raise AssertionError(f"pit record {out}")
     ratings = {k: vars(v) for k, v in book.ratings.items()}
     if sorted(saved) != ["coach/best.pt", "r6/best.pt"] or saved != ratings:
         raise AssertionError(f"tournament book {saved}")
-    if launches != sims[0] or launches == 0:
-        raise AssertionError(f"pit: {launches} backup launches for "
-                             f"{sims[0]} simulations")
+    _check_launches("pit", sims[0], launches, descents)
     err, _ = _check_recorded(samples, calls, "the pit's searches")
     print(f"pit: r6 vs greedy {out['wins']}-{out['losses']} "
           f"({out['draws']} draws) in {pair_s:.1f} s; tournament in "
-          f"{tour_s:.1f} s; backup launches {launches} = simulations "
-          f"{sims[0]}", flush=True)
+          f"{tour_s:.1f} s; backup and descent launches {launches} = "
+          f"simulations {sims[0]}", flush=True)
     return {"pair": out, "pair_seconds": pair_s, "tournament_seconds": tour_s,
-            "ratings": ratings, "launches": launches, "simulations": sims[0],
-            "backup_max_abs_err": err}
+            "ratings": ratings, "launches": launches, "descents": descents,
+            "simulations": sims[0], "backup_max_abs_err": err}
 
 
 # the review phase's board, from the board DSL (the JAX board-DSL tests'
@@ -1449,7 +1867,7 @@ def phase_tooling(examples, review_sims=1600):
     samples, sims, rec = {}, [0], {}
     with tempfile.TemporaryDirectory() as tmp:
         with _checked_path(sims, samples) as calls:
-            FB.fused_backup.launches = 0
+            _zero_launches()
             # the sequential pit, its games recorded
             games = os.path.join(tmp, "games")
             t0 = time.perf_counter()
@@ -1491,7 +1909,7 @@ def phase_tooling(examples, review_sims=1600):
             if (1, 17, 16) not in samples:
                 raise AssertionError("no backup recorded at B=1, M=17")
             _sync()
-            pit_launches = FB.fused_backup.launches
+            pit_launches, pit_descents = FB.fused_backup.launches, _descents()
             m17 = _entry_at(samples[1, 17, 16])
             FB.fused_backup.launches = pit_launches
             # offline training on phase 4's examples, warm-started from r6
@@ -1519,14 +1937,13 @@ def phase_tooling(examples, review_sims=1600):
                 _sync()
                 review_s = time.perf_counter() - t0
             review_launches = FB.fused_backup.launches - pit_launches
-            launches = FB.fused_backup.launches
+            review_descents = _descents() - pit_descents
+            launches, descents = FB.fused_backup.launches, _descents()
             t0 = time.perf_counter()
             ops = PROF.top_ops(trace_dir, None)
             top_ops_s = time.perf_counter() - t0
-    if launches != sims[0] or review_launches != review_sims:
-        raise AssertionError(f"tooling: {launches} backup launches for "
-                             f"{sims[0]} simulations ({review_launches} in "
-                             f"the review)")
+    _check_launches("tooling", sims[0], launches, descents)
+    _check_launches("review", review_sims, review_launches, review_descents)
     entry_rows = [r for r in ops if "fused_backup_entry_kernel" in r[3]]
     if len(entry_rows) != 1 or not 0.9 * review_sims <= entry_rows[0][1]:
         raise AssertionError(f"review trace rows {entry_rows}")
@@ -1548,7 +1965,7 @@ def phase_tooling(examples, review_sims=1600):
                      "q": q.tolist(), "top_ops": ops[:8],
                      "entry_row": entry_rows[0],
                      "device_ops": sum(r[1] for r in ops)}
-    rec.update(launches=launches, simulations=sims[0],
+    rec.update(launches=launches, descents=descents, simulations=sims[0],
                backup_max_abs_err=err, entry_by_shape=shapes,
                seconds=time.perf_counter() - t_phase)
     r = rec["review"]
@@ -1571,8 +1988,8 @@ def phase_tooling(examples, review_sims=1600):
                       f"{v['bound_by']})" for k, v in shapes.items())
           + f"; at B1_M17 index_put_ {m17['library_ms'] * 1e3:.1f}, plain "
           f"host {m17['plain_host_ms'] * 1e3:.1f}", flush=True)
-    print(f"tooling: backup launches {launches} = simulations {sims[0]}; "
-          f"phase {rec['seconds']:.1f} s", flush=True)
+    print(f"tooling: backup and descent launches {launches} = simulations "
+          f"{sims[0]}; phase {rec['seconds']:.1f} s", flush=True)
     return rec
 
 
@@ -1685,23 +2102,22 @@ def _cli_iteration(argv):
     try:
         with tempfile.TemporaryDirectory() as tmp, \
                 _checked_path(sims, samples) as calls:
-            FB.fused_backup.launches = 0
+            _zero_launches()
             t0 = time.perf_counter()
             CLI.main(argv + ["-C", tmp])
             _sync()
             seconds = time.perf_counter() - t0
-            launches = FB.fused_backup.launches
+            launches, descents = FB.fused_backup.launches, _descents()
             with open(os.path.join(tmp, "metrics.jsonl")) as f:
                 record = json.loads(f.readline())
     finally:
         for n, f in saved.items():
             setattr(CO.Coach, n, f)
-    if launches != sims[0]:
-        raise AssertionError(f"{argv}: {launches} backup launches for "
-                             f"{sims[0]} simulations")
+    _check_launches(" ".join(argv), sims[0], launches, descents)
     err, _ = _check_recorded(samples, calls, "the CLI iteration")
     return {"seconds": seconds, "stage_seconds": stage, "launches": launches,
-            "simulations": sims[0], "backup_max_abs_err": err,
+            "descents": descents, "simulations": sims[0],
+            "backup_max_abs_err": err,
             "record": record}
 
 
@@ -1748,17 +2164,16 @@ def _distributed_child(out_path):
     rec["train_step_max_abs_dparam"] = float(
         (params["nccl"] - params["plain"]).abs().max())
 
-    FB.fused_backup.launches = 0
+    _zero_launches()
     sims, samples = [0], {}
     with _checked_path(sims, samples) as calls:
         rec["dryrun"] = DR.dryrun("cuda")
         _sync()
-    dry_launches = FB.fused_backup.launches
-    if dry_launches != sims[0]:
-        raise AssertionError(f"dry run: {dry_launches} backup launches for "
-                             f"{sims[0]} simulations")
+    dry_launches, dry_descents = FB.fused_backup.launches, _descents()
+    _check_launches("dry run", sims[0], dry_launches, dry_descents)
     err, _ = _check_recorded(samples, calls, "the dry run's self-play")
-    rec["dryrun"].update(launches=dry_launches, backup_max_abs_err=err)
+    rec["dryrun"].update(launches=dry_launches, descents=dry_descents,
+                         backup_max_abs_err=err)
     rec["bench_scaling"] = BS.main(["--batch-per-device", "4096",
                                     "--steps", "50"])
     D.shutdown()
@@ -1806,6 +2221,8 @@ def phase_distributed():
     rec = {"child": child, "plain_cli": plain, "train_loss_rel_diff":
            loss_rel, "launches": (c["launches"] + child["dryrun"]["launches"]
                                   + plain["launches"]),
+           "descents": (c["descents"] + child["dryrun"]["descents"]
+                        + plain["descents"]),
            "backup_max_abs_err": max(c["backup_max_abs_err"],
                                      child["dryrun"]["backup_max_abs_err"],
                                      plain["backup_max_abs_err"]),
@@ -1815,7 +2232,8 @@ def phase_distributed():
           f"in a child: {c['seconds']:.1f} s (self-play "
           f"{st['self_play_iteration']:.2f} s, train "
           f"{st['train_iteration']:.2f} s, gate {st['gate']:.2f} s); backup "
-          f"launches {c['launches']} = simulations {c['simulations']}; equal "
+          f"and descent launches {c['launches']} = simulations "
+          f"{c['simulations']}; equal "
           f"to the same iteration without --distributed ({plain['seconds']:.1f}"
           f" s; examples {plain_rec['selfplay_examples']}, gate "
           f"{plain_rec['gate_new']}-{plain_rec['gate_old']}-"
@@ -1923,6 +2341,19 @@ def main(argv=None) -> int:
         "ms": kb["ms"],
         "plain_ms": kb["plain_ms"], "bound_ms": kb["bound_ms"],
         "bound_by": kb["bound_by"], "library_ms": kb["library_ms"]}]}
+    kd = kernels["descent"]
+    paths = (search, selfplay, coach, reuse, pit, distributed, tooling)
+    line["kernels"].append({
+        "name": "descent", "route": "cuda",
+        "source": "alphazero_tpu_torch/ops/csrc/descent.cu",
+        "replaces": "alphazero_tpu/search/mcts.py:293",
+        "launches": sum(p["descents"] for p in paths),
+        "max_abs_err": kd["max_abs_err"], "ms": kd["ms"],
+        "plain_ms": kd["plain_ms"], "bound_ms": kd["work_bound_ms"],
+        "bound_by": kd["work_bound_by"], "library_ms": None,
+        "latency_floor_ms": kd["latency_floor_ms"]})
+    if [p["descents"] for p in paths] != [p["launches"] for p in paths]:
+        raise AssertionError("descent and backup launches differ on a path")
     record = {"card": smi, "build_s": build_s, "seconds": total_s,
               "kernels": kernels,
               "search": search, "selfplay": selfplay, "reuse": reuse,

@@ -7,7 +7,9 @@ in the same order, so visit counts are equal and ``q`` agrees to 1e-6; the
 JAX side runs both staged ("auto") and unstaged ("off").  With the r6 net
 the two forwards differ in the last bits (matmul order), so ``q``,
 ``root_value`` and ``root_prior`` agree within 1e-5 and the counts are
-equal on these seeds.  The plain descent is held exactly to ``_select``."""
+equal on these seeds.  The plain descent is held exactly to ``_select`` on
+fresh and carried JAX trees; the descent kernel is held to the plain
+version on the card by ``chip_smoke.py``."""
 
 import dataclasses
 import os
@@ -25,8 +27,10 @@ from alphazero_tpu.search import mcts as JM
 from alphazero_tpu_torch.games.splendor import adapter as A
 from alphazero_tpu_torch.games.splendor import env as E
 from alphazero_tpu_torch.models import splendor_net as N
+from alphazero_tpu_torch.ops import descent as D
 from alphazero_tpu_torch.search import mcts as M
 from alphazero_tpu_torch.utils import checkpoint as C
+from tests.test_torch_port_train import _one_thread  # noqa: F401
 
 R6 = os.path.join(os.path.dirname(__file__), "..", "runs", "r6")
 
@@ -103,18 +107,60 @@ def test_r6_net_parity():
     assert np.abs(tr.q.numpy()).max() > 1e-3       # the net's values count
 
 
-@pytest.mark.parametrize("max_depth", [0, 3])
-def test_descent_equals_jax_select(max_depth):
-    """The plain descent on trees that JAX searches built."""
+DESCENT_CASES = [
+    pytest.param(dict(max_depth=0), id="0"),
+    pytest.param(dict(max_depth=3), id="3"),
+    pytest.param(dict(fpu=-0.2), id="fpu_le_0"),
+    pytest.param(dict(forced_playouts=False), id="no_forced"),
+    # uniform priors without noise: unvisited edges tie exactly
+    pytest.param(dict(add_noise=False, forced_playouts=False),
+                 id="uniform_ties"),
+    pytest.param(dict(tree="carried", B=4, S=16), id="carried"),
+    pytest.param(dict(B=1, S=40), id="b1_no_cap"),
+]
+
+
+def _jax_trees(mcfg, B, S, carried):
+    """The trees of a JAX search of ``B`` seed-made roots (uniform
+    evaluator), with each tree's node counts: one fresh search, or for
+    ``carried`` a reusing search run, re-rooted on the most-visited action
+    and its in-tree next state, and run again (both carried trees)."""
     jcfg = JE.SplendorConfig()
-    B, S = 8, 24
-    mcfg = JM.MCTSConfig(num_sims=S, stage_sims="off", add_noise=True,
-                         forced_playouts=True, fpu=0.25, max_depth=max_depth)
-    init_tree, core, Mx = JM._build_core(
-        mcfg, 2, JA.make_uniform_eval_fn(jcfg), JA.make_search_step_fn(jcfg),
-        JA.make_valid_fn(jcfg), keep_cap=0)
+    fns = (JA.make_uniform_eval_fn(jcfg), JA.make_search_step_fn(jcfg),
+           JA.make_valid_fn(jcfg))
     roots = jnp.asarray(_roots(E.SplendorConfig(), B, 9).numpy())
-    _, tree, _ = jax.jit(core)(None, *init_tree(roots), jax.random.PRNGKey(1))
+    if not carried:
+        init_tree, core, Mx = JM._build_core(mcfg, 2, *fns, keep_cap=0)
+        _, tree, n = jax.jit(core)(None, *init_tree(roots),
+                                   jax.random.PRNGKey(1))
+        return [(tree, n)], Mx
+    rs = JM.build_reusing_search(mcfg, 2, *fns)
+    run = jax.jit(rs.run)
+    res, tree, n = run(None, *jax.jit(rs.init_tree)(roots),
+                       jax.random.PRNGKey(1))
+    actions = jnp.argmax(res.raw_counts, -1).astype(jnp.int32)
+    nxt = jax.vmap(fns[1])(tree.states[:, 0], actions)[0]
+    tree, n = jax.jit(rs.reroot)(tree, actions, nxt)
+    assert int(n.max()) > 1
+    out = [(tree, n)]
+    _, tree, n = run(None, tree, n, jax.random.PRNGKey(2))
+    return out + [(tree, n)], rs.capacity
+
+
+@pytest.mark.parametrize("case", DESCENT_CASES)
+def test_descent_equals_jax_select(case):
+    """The plain descent on trees that JAX searches built, fresh or carried
+    across a reroot, with its loop bound ``min(n, depth_cap)`` for the
+    largest node count ``n``."""
+    case = dict(case)
+    B, S = case.pop("B", 8), case.pop("S", 24)
+    carried = case.pop("tree", None) == "carried"
+    kw = dict(num_sims=S, stage_sims="off", add_noise=True,
+              forced_playouts=True, fpu=0.25)
+    kw.update(case)
+    mcfg = JM.MCTSConfig(**kw)
+    trees, Mx = _jax_trees(mcfg, B, S, carried)
+    max_depth = mcfg.max_depth
     PL = min(Mx - 1, max_depth) if max_depth else Mx - 1
     tcfg = M.MCTSConfig(**{f.name: getattr(mcfg, f.name)
                            for f in dataclasses.fields(JM.MCTSConfig)})
@@ -124,16 +170,40 @@ def test_descent_equals_jax_select(max_depth):
         z = jnp.zeros((B, PL), jnp.int32)
         return JM._select(mcfg, tree, sim_idx, z + Mx, z, z, PL)
 
-    stats = torch.from_numpy(np.array(tree.stats))
-    for sim_idx in (S - 1, S + 7):
-        jout = jselect(tree, jnp.int32(sim_idx))
-        tout = M._select(tcfg, stats, sim_idx, PL, min(S + 1, PL))
-        for name, j, t in zip(("parent", "action", "existing", "depth",
-                               "parent_rot", "path_p", "path_a", "path_r"),
-                              jout, tout):
-            np.testing.assert_array_equal(np.asarray(j), t.numpy(),
-                                          err_msg=name)
-    assert int(np.asarray(jout[3]).max()) >= 2
+    deepest = 0
+    for tree, n in trees:
+        stats = torch.from_numpy(np.array(tree.stats))
+        levels = min(int(np.asarray(n).max()), PL)
+        for sim_idx in (S - 1, S + 7):
+            jout = jselect(tree, jnp.int32(sim_idx))
+            tout = M._select(tcfg, stats, sim_idx, PL, levels)
+            for name, j, t in zip(("parent", "action", "existing", "depth",
+                                   "parent_rot", "path_p", "path_a",
+                                   "path_r"), jout, tout):
+                np.testing.assert_array_equal(np.asarray(j), t.numpy(),
+                                              err_msg=name)
+            deepest = max(deepest, int(np.asarray(jout[3]).max()))
+    assert deepest >= 2
+
+
+def test_descent_wrapper_on_cpu_is_the_plain_version():
+    """``ops.descent.select`` on CPU tensors returns ``select_plain``'s
+    outputs (values and dtypes) and launches no kernel."""
+    trees, Mx = _jax_trees(JM.MCTSConfig(num_sims=16, add_noise=True,
+                                         forced_playouts=True), 4, 16, False)
+    stats = torch.from_numpy(np.array(trees[0][0].stats))
+    cfg = M.MCTSConfig(num_sims=16, add_noise=True, forced_playouts=True)
+    before = D.select.launches
+    got = D.select(cfg, stats, 20, Mx - 1, Mx - 1)
+    want = D.select_plain(cfg, stats, 20, Mx - 1, Mx - 1)
+    assert D.select.launches == before
+    assert [t.dtype for t in got] == [torch.int64] * 3 + [torch.int32,
+                                                         torch.int64] \
+        + [torch.int32] * 3
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="float32"):
+        D.select(cfg, stats.double(), 20, Mx - 1, Mx - 1)
 
 
 def test_stage_schedules_are_validated():
