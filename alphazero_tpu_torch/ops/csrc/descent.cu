@@ -30,25 +30,52 @@
 // bits PyTorch's elementwise ops give; ties go to the lowest index as
 // torch.argmax's do (NaN above every number, as there).
 //
-// What bounds it on this card.  A level reads three edge lanes of one node
-// row (3 * 409 floats at A = 409) and four scalars; at B = 1024 boards and
-// 2-4 levels that is some 15 MB per launch, 4-5 us at 3.35 TB/s.  Below a
-// few hundred boards the chain of dependent loads bounds it instead: a
-// level's row address comes from the level before.
+// What bounds it on this card.  A level needs three edge lanes of one node
+// row (3 * 409 floats at A = 409), the node's scalars and one child pointer:
+// at B = 1024 boards and 1.6 levels a board some 9 MB per launch, 2.7 us at
+// 3.35 TB/s, so bytes bound it there.  Per board the levels are a chain (a
+// level's row address comes from the level before), so each level costs
+// one bulk copy's latency plus the block's scoring and reduction, and below
+// a few hundred boards that chain bounds it instead.  The copy reads the
+// whole row, a third more bytes than the bound counts, because the CHILD
+// lane comes whole in place of one word: the chosen edge's child pointer is
+// then read from shared memory; loading that word from device memory after
+// the argmax would cost a second dependent round trip per level.
 //
-// Design.  One warp per board, one block per warp: a board's levels are a
-// chain and boards share nothing, so no block waits on another, and all
-// 1024 boards of a search are resident at once (32 blocks per SM).  A lane
-// holds up to 16 columns of each edge lane per tile (512 columns), issues
-// all of a tile's loads before it computes, keeps its own first maximum,
-// and the warp reduces (value, index) pairs with shuffles.  Each level then
-// reads the chosen edge's child pointer (one word, the same for every
-// lane), so a level costs two dependent round trips.  A board runs until it
-// stops: no level bound from the host and no host sync.  Offsets into stats
-// are 64-bit (a reused tree reaches 1.57 GiB).
+// Design.  One block of four warps (128 threads) per board, grid B: at
+// B = 1024 all boards are resident at once (~8 blocks, ~31 warps per SM).
+// Per level, thread 0 arms an mbarrier with the row's byte count and issues
+// one TMA bulk copy (cp.async.bulk) of the whole node row, 16 * C bytes
+// (6,576 at A = 409), into shared memory; every thread waits on the
+// barrier's phase parity.  The row's byte offset, (b * M + node) * 16 * C,
+// is a multiple of 16, as the bulk copy needs, whenever stats is 16-byte
+// aligned (the wrapper checks).  The root's copy is issued before the
+// block's first barrier, each later one as soon as the level's pick is
+// known; beside it every thread loads the node's visit count and value
+// sum (the same round trip) and computes their square roots and division
+// while the copy is in flight.  A thread reads the priors of the columns tid, tid + 128, ...;
+// the warp lists its valid columns (ballots), and a lane scores each
+// listed column, so the slow paths (two IEEE divisions for a visited edge,
+// a square root for forced playouts at the root) run once per 32 valid
+// columns of a warp, not once per column slot in which any lane has one.
+// A score becomes an unsigned key in torch.argmax's order (NaN first, then
+// the value); each warp reduces (key, column) pairs with two warp-wide
+// reductions (__reduce_max_sync, then __reduce_min_sync of the column among
+// the lanes holding the largest key: the lower column among equal keys)
+// and the first forced column with a third; lane 0 writes the warp's
+// winner to shared memory, and after one __syncthreads every thread
+// combines the four winners in the same order, so all threads agree on the
+// pick and the next node.  Rows, barriers and winners come in two sets
+// used on alternate levels: the copy for level L + 1 is issued after level
+// L's __syncthreads, which every thread reaches only once it is done
+// reading level L - 1's row and winners, so no copy overwrites a row still
+// being read and no proxy fence is needed.  A board runs until it stops: no
+// level bound from the host and no host sync.  Offsets into stats are
+// 64-bit (a reused tree reaches 1.57 GiB).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace {
 
@@ -58,103 +85,220 @@ constexpr int kEN = 2;
 constexpr int kEW = 3;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarp = 32;
-constexpr int kPerLane = 16;                 // columns a lane holds per tile
-constexpr int kTile = kWarp * kPerLane;
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarp * kWarps;
+constexpr int kPer = 4;                      // columns a thread scans per tile
+constexpr int kTile = kThreads * kPer;       // 512 columns
+constexpr int kList = kWarp * kPer;          // a warp's columns in a tile
 constexpr float kEps = 1e-8f;
+// shared memory per block: two node rows (2 * 16 * C bytes), then two
+// mbarriers, two sets of the warps' winners (key, column, first forced
+// column) and one column list per warp; ops/descent.py::smem_bytes gives
+// the same count
+constexpr int kTailBytes = 2 * 8 + 2 * kWarps * 3 * 4 + kWarps * kList * 4;
+constexpr int kMaxSmem = 232448;             // what a block may use (227 KB)
+constexpr int kDefaultSmem = 48 * 1024;      // usable without opting in
+constexpr int kMaxDevices = 64;
 
-// torch.argmax's order: NaN above every number, then the larger value, then
-// the lower index among equal values.
-__device__ __forceinline__ bool beats(float v, int i, float bv, int bi) {
-  const bool vn = isnan(v), bn = isnan(bv);
-  if (vn != bn) return vn;
-  if (!vn && v != bv) return v > bv;
-  return i < bi;
+// torch.argmax's order on floats as an unsigned key, the pick being the
+// largest: NaN above every number, then the larger value, -0.0 equal to
+// 0.0 (ties go to the lower column, which the callers keep); every value,
+// -inf included, keys above 0.
+__device__ __forceinline__ unsigned order_key(float u) {
+  const unsigned bits = __float_as_uint(__fadd_rn(u, 0.0f));  // -0.0 -> 0.0
+  const unsigned key =
+      bits ^ (static_cast<unsigned>(static_cast<int>(bits) >> 31) |
+              0x80000000u);
+  return isnan(u) ? 0xffffffffu : key;
 }
 
-__global__ void __launch_bounds__(kWarp)
+constexpr unsigned kKeyNegInf = 0x007fffffu;   // order_key(-inf)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// thread 0: expect `bytes` on `bar` and copy them from src to dst (TMA)
+__device__ __forceinline__ void bulk_copy_row(uint32_t dst, const void* src,
+                                              uint32_t bytes, uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void wait_parity(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Appends this lane's column c to the warp's list where `take`; every lane
+// of the warp calls it.  Returns the list's new length.
+__device__ __forceinline__ unsigned list_push(int* list, unsigned n, bool take,
+                                              int c, int lane) {
+  const unsigned m = __ballot_sync(kFull, take);
+  if (take) list[n + __popc(m & ((1u << lane) - 1u))] = c;
+  return n + __popc(m);
+}
+
+__global__ void __launch_bounds__(kThreads)
 descent_kernel(const float* __restrict__ stats, int M, int C, int depth_cap,
                float cpuct, float fpu, int fpu_from_parent, int forced,
                float k_forced, float sim_f, long long* __restrict__ out64,
                int B, int* __restrict__ depth_out, int* __restrict__ paths) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x;
-  const int lane = threadIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid % kWarp, warp = tid / kWarp;
   const int A = C - 2;
   const long long node_stride = 4LL * C;
+  const uint32_t row_bytes = static_cast<uint32_t>(16 * C);
+  float* rows = reinterpret_cast<float*>(smem);            // [2][4 * C]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + 2 * row_bytes);
+  unsigned* win_h = reinterpret_cast<unsigned*>(bars + 2); // [2][kWarps]
+  int* win_c = reinterpret_cast<int*>(win_h + 2 * kWarps); // [2][kWarps]
+  int* win_f = win_c + 2 * kWarps;                         // [2][kWarps]
+  int* list = win_f + 2 * kWarps + warp * kList;           // this warp's
+
   const float* board = stats + static_cast<long long>(b) * M * node_stride;
   const long long plane = static_cast<long long>(B) * depth_cap;
   int* pp = paths + static_cast<long long>(b) * depth_cap;
   int* pa = pp + plane;
   int* pr = pa + plane;
 
+  if (tid == 0) {
+    for (int k = 0; k < 2; ++k)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   :: "r"(smem_addr(bars + k)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // the root's row is on its way while the block meets
+    if (depth_cap > 0)
+      bulk_copy_row(smem_addr(rows), board, row_bytes, smem_addr(bars));
+  }
+  __syncthreads();
+
+  // the node's visit count and value sum, loaded beside the row's copy
+  float ns = 0.0f, ws = 0.0f;
+  if (depth_cap > 0) {
+    ns = __ldg(board + kEN * C + A);
+    ws = __ldg(board + kEW * C + A);
+  }
   long long node = 0, parent = 0, action = 0, existing = 0, prot = 0;
   int level = 0;
   while (level < depth_cap) {
-    const float* row = board + node * node_stride;
-    const float ns = row[kEN * C + A];
-    const float ws = row[kEW * C + A];
-    const long long rot = static_cast<long long>(row[kChild * C + A]);
-    const float qs = __fdiv_rn(ws, __fadd_rn(ns, 1.0f));
-    const float fpu_init = fpu_from_parent ? __fsub_rn(qs, fpu) : fpu;
+    const int set = level & 1;
+    const float* row = rows + set * 4 * C;
+    const float fpu_init =
+        fpu_from_parent ? __fsub_rn(__fdiv_rn(ws, __fadd_rn(ns, 1.0f)), fpu)
+                        : fpu;
     const float sq = __fsqrt_rn(ns);
-    const float sq_eps = __fsqrt_rn(__fadd_rn(ns, kEps));
+    // from one visit on, ns + 1e-8 rounds to ns: one square root
+    const float ns_eps = __fadd_rn(ns, kEps);
+    const float sq_eps = ns_eps == ns ? sq : __fsqrt_rn(ns_eps);
+    // the barrier of this set completes once per use: levels set, set + 2, ..
+    wait_parity(smem_addr(bars + set), static_cast<uint32_t>(level >> 1) & 1u);
+    const long long rot = static_cast<long long>(row[kChild * C + A]);
     const bool force_here = forced && node == 0;
 
-    float bv = -CUDART_INF_F;
-    int bi = 0x7fffffff;
+    // Scores.  Only valid columns can win unless every u is -inf, and
+    // then so is every column's and the pick is column 0.  So a thread
+    // reads the priors of its columns (all loads first), the warp lists its
+    // valid columns, and a lane scores each listed column: a warp runs the
+    // slow paths (two divisions for a visited column, a square root for
+    // forced playouts at the root) once per 32 valid columns of a tile, not
+    // once per column of every lane.  A lane's listed columns rise, so
+    // keeping its first best key keeps the lower column among equal keys.
+    unsigned best_h = 0;
+    int best_c = 0x7fffffff;
     int first_forced = A;
     for (int base = 0; base < A; base += kTile) {
-      float pv[kPerLane], en[kPerLane], ew[kPerLane];
+      float pv[kPer];
 #pragma unroll
-      for (int k = 0; k < kPerLane; ++k) {
-        const int c = base + k * kWarp + lane;
-        if (c < A) {
-          pv[k] = row[kPValid * C + c];
-          en[k] = row[kEN * C + c];
-          ew[k] = row[kEW * C + c];
-        }
+      for (int k = 0; k < kPer; ++k) {
+        const int c = base + k * kThreads + tid;
+        pv[k] = c < A ? row[kPValid * C + c] : -1.0f;
       }
+      unsigned n = 0;
 #pragma unroll
-      for (int k = 0; k < kPerLane; ++k) {
-        const int c = base + k * kWarp + lane;
-        if (c >= A) continue;
-        const bool valid = pv[k] >= 0.0f;
-        const float prior = valid ? pv[k] : 0.0f;
-        const float cp = __fmul_rn(cpuct, prior);
+      for (int k = 0; k < kPer; ++k)
+        n = list_push(list, n, pv[k] >= 0.0f, base + k * kThreads + tid,
+                      lane);
+      __syncwarp();
+      for (unsigned j = lane; j < n; j += kWarp) {
+        const int c = list[j];
+        const float p = row[kPValid * C + c];
+        const float e = row[kEN * C + c];
+        const float cp = __fmul_rn(cpuct, p);
         float u;
-        if (en[k] > 0.0f) {
-          const float q = __fdiv_rn(ew[k], fmaxf(en[k], 1.0f));
-          u = __fadd_rn(q, __fdiv_rn(__fmul_rn(cp, sq),
-                                     __fadd_rn(1.0f, en[k])));
+        if (e > 0.0f) {
+          const float q = __fdiv_rn(row[kEW * C + c], fmaxf(e, 1.0f));
+          u = __fadd_rn(q, __fdiv_rn(__fmul_rn(cp, sq), __fadd_rn(1.0f, e)));
         } else {
           u = __fadd_rn(fpu_init, __fmul_rn(cp, sq_eps));
         }
-        if (!valid) u = -CUDART_INF_F;
-        if (beats(u, c, bv, bi)) {
-          bv = u;
-          bi = c;
+        const unsigned h = order_key(u);
+        if (h > best_h) {
+          best_h = h;
+          best_c = c;
         }
-        if (force_here && valid && c < first_forced) {
+        if (force_here) {
           const float th = floorf(__fsqrt_rn(
-              __fmul_rn(__fmul_rn(k_forced, prior), sim_f)));
-          if (en[k] < th) first_forced = c;
+              __fmul_rn(__fmul_rn(k_forced, p), sim_f)));
+          if (e < th) first_forced = min(first_forced, c);
         }
       }
+      __syncwarp();
     }
+    // the warp's pick, then the block's: every thread reduces the four
+    // winners in the same order and agrees on the pick
+    const unsigned wh = __reduce_max_sync(kFull, best_h);
+    const int wc = __reduce_min_sync(kFull, best_h == wh ? best_c : 0x7fffffff);
+    first_forced = __reduce_min_sync(kFull, first_forced);
+    if (lane == 0) {
+      win_h[set * kWarps + warp] = wh;
+      win_c[set * kWarps + warp] = wc;
+      win_f[set * kWarps + warp] = first_forced;
+    }
+    __syncthreads();
+    best_h = win_h[set * kWarps];
+    best_c = win_c[set * kWarps];
+    first_forced = win_f[set * kWarps];
 #pragma unroll
-    for (int off = kWarp / 2; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(kFull, bv, off);
-      const int oi = __shfl_xor_sync(kFull, bi, off);
-      if (beats(ov, oi, bv, bi)) {
-        bv = ov;
-        bi = oi;
+    for (int w = 1; w < kWarps; ++w) {
+      const unsigned h = win_h[set * kWarps + w];
+      const int c = win_c[set * kWarps + w];
+      if (h > best_h || (h == best_h && c < best_c)) {
+        best_h = h;
+        best_c = c;
       }
-      first_forced = min(first_forced,
-                         __shfl_xor_sync(kFull, first_forced, off));
+      first_forced = min(first_forced, win_f[set * kWarps + w]);
     }
-    const int a = first_forced < A ? first_forced : bi;
+    const int a = first_forced < A      ? first_forced
+                  : best_h > kKeyNegInf ? best_c
+                                        : 0;
     const float child_raw = row[kChild * C + a];
     const long long child = static_cast<long long>(fabsf(child_raw));
-    if (lane == 0) {
+    const bool stop = child == 0 || child_raw < 0.0f || level + 1 >= depth_cap;
+    // the next level's row is on its way before this level's records
+    if (tid == 0 && !stop)
+      bulk_copy_row(smem_addr(rows + (set ^ 1) * 4 * C),
+                    board + child * node_stride, row_bytes,
+                    smem_addr(bars + (set ^ 1)));
+    if (!stop) {
+      ns = __ldg(board + child * node_stride + kEN * C + A);
+      ws = __ldg(board + child * node_stride + kEW * C + A);
+    }
+    if (tid == 0) {
       pp[level] = static_cast<int>(node);
       pa[level] = a;
       pr[level] = static_cast<int>(rot);
@@ -164,15 +308,15 @@ descent_kernel(const float* __restrict__ stats, int M, int C, int depth_cap,
     existing = child;
     prot = rot;
     ++level;
-    if (child == 0 || child_raw < 0.0f || level >= depth_cap) break;
+    if (stop) break;
     node = child;
   }
-  for (int l = level + lane; l < depth_cap; l += kWarp) {
+  for (int l = level + tid; l < depth_cap; l += kThreads) {
     pp[l] = M;
     pa[l] = 0;
     pr[l] = 0;
   }
-  if (lane == 0) {
+  if (tid == 0) {
     out64[b] = parent;
     out64[B + b] = action;
     out64[2 * B + b] = existing;
@@ -185,13 +329,34 @@ descent_kernel(const float* __restrict__ stats, int M, int C, int depth_cap,
 
 // out64: [4, B] int64 (parent, action, existing, parent_rot); depth: [B]
 // int32; paths: [3, B, depth_cap] int32 (path_p, path_a, path_r).
+// smem_bytes is ops/descent.py::smem_bytes(C); stats must be 16-byte
+// aligned.  Returns the CUDA error code (cudaErrorInvalidValue where
+// smem_bytes is not what the kernel lays out or exceeds a block's share).
 extern "C" int descent_launch(const float* stats, int B, int M, int C,
                               int depth_cap, float cpuct, float fpu,
                               int fpu_from_parent, int forced, float k_forced,
                               float sim_f, long long* out64, int* depth,
-                              int* paths, void* stream) {
+                              int* paths, int smem_bytes, void* stream) {
   if (B <= 0) return 0;
-  descent_kernel<<<B, kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (C < 3 || smem_bytes != 32 * C + kTailBytes || smem_bytes > kMaxSmem ||
+      reinterpret_cast<uintptr_t>(stats) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (smem_bytes > kDefaultSmem) {
+    // opt in once per device, to the most a block may use
+    static bool opted_in[kMaxDevices] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev >= kMaxDevices || !opted_in[dev]) {
+      err = cudaFuncSetAttribute(descent_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kMaxSmem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (dev < kMaxDevices) opted_in[dev] = true;
+    }
+  }
+  descent_kernel<<<B, kThreads, smem_bytes,
+                   static_cast<cudaStream_t>(stream)>>>(
       stats, M, C, depth_cap, cpuct, fpu, fpu_from_parent, forced, k_forced,
       sim_f, out64, B, depth, paths);
   return static_cast<int>(cudaGetLastError());

@@ -1,10 +1,14 @@
-// Dependent-load latency probe for Hopper (sm_90a), bound to Python with
-// ctypes.  Not part of the search: chip_smoke.py times it to give the
-// descent kernel's latency floor (one dependent L2 load per tree level).
+// Latency probes for Hopper (sm_90a), bound to Python with ctypes.  Not part
+// of the search: chip_smoke.py times them beside the descent kernel.
 //
-// One thread follows a chain of indices i -> next[i] from 0 for `steps`
-// links, each load waiting for the one before; ld.global.cg keeps the loads
-// in L2.  The last index is written to sink so the loop is not removed.
+// l2_chase: one thread follows a chain of indices i -> next[i] from 0 for
+// `steps` links, each load waiting for the one before; ld.global.cg keeps
+// the loads in L2.  The last index is written to sink so the loop is not
+// removed.  It gives the descent's latency floor (one dependent L2 load
+// per tree level).
+//
+// noop: an empty kernel of one thread.  Its device time is the floor under
+// any launch's, the descent's included.
 
 #include <cuda_runtime.h>
 
@@ -17,11 +21,18 @@ __global__ void chase_kernel(const int* __restrict__ next, int steps,
   *sink = i;
 }
 
+__global__ void noop_kernel() {}
+
 }  // namespace
 
 extern "C" int l2_chase_launch(const int* next, int steps, int* sink,
                                void* stream) {
   chase_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(next, steps,
                                                                sink);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int noop_launch(void* stream) {
+  noop_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,9 +9,10 @@ root's forced playouts), record the edge, and follow the child pointer
 until an unexpanded edge, a terminal child or the depth cap.
 
 ``select`` takes the plain version, ``select_plain``, for CPU tensors; for
-CUDA tensors it launches ``csrc/descent.cu`` (one warp per board, each
-running until its path stops) or raises.  ``select.launches`` counts the
-kernel's launches.
+CUDA tensors it launches ``csrc/descent.cu`` (one block of four warps per
+board, each running until its path stops, each level's node row brought
+whole into shared memory by one TMA bulk copy) or raises.
+``select.launches`` counts the kernel's launches.
 
 Precondition, not checked on the card (it would cost a device sync): every
 child pointer ``|stats[b, n, CHILD, a]|`` lies in ``[0, M)``.  On the CPU an
@@ -39,7 +40,26 @@ _STOP_CHECK_LEVELS = 8
 
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_PTR, _INT, _INT, _INT, _INT, _FLOAT, _FLOAT, _INT, _INT, _FLOAT,
-             _FLOAT, _PTR, _PTR, _PTR, _PTR]
+             _FLOAT, _PTR, _PTR, _PTR, _INT, _PTR]
+
+# shared memory a block of the kernel may use on Hopper (227 KB), and what
+# it lays out after its two node rows: two mbarriers (8 bytes each), two
+# sets of four warps' winners (key, column and first forced column, 4 bytes
+# each) and four warps' column lists of 128 int32
+SMEM_LIMIT = 232_448
+_SMEM_TAIL = 2 * 8 + 2 * 4 * 3 * 4 + 4 * 128 * 4
+
+
+def smem_bytes(C: int) -> int:
+    """Dynamic shared memory of one kernel block for rows of ``C = A + 2``
+    columns: two node rows of ``4 * C`` float32 (one per level parity), then
+    the barriers, the warps' winners and their column lists.  Raises where a
+    block cannot hold it."""
+    n = 2 * 16 * C + _SMEM_TAIL
+    if n > SMEM_LIMIT:
+        raise ValueError(f"rows of {C} columns need {n} bytes of shared "
+                         f"memory per block; a block may use {SMEM_LIMIT}")
+    return n
 
 
 def _ucb_pick_rows(cfg, prior_r, valid_r, en_r, ew_r, ns, qs, sim_idx: int,
@@ -158,6 +178,10 @@ def select(cfg, stats, sim_idx: int, depth_cap: int, levels: int):
     if stats.device.type == "cpu":
         return select_plain(cfg, stats, sim_idx, depth_cap, levels)
     B, M, _, C = stats.shape
+    smem = smem_bytes(C)
+    if stats.data_ptr() % 16:
+        raise ValueError("stats must be 16-byte aligned on the card (the "
+                         "kernel copies whole node rows with TMA)")
     dev = stats.device
     out64 = torch.empty((4, B), dtype=torch.int64, device=dev)
     depth = torch.empty(B, dtype=torch.int32, device=dev)
@@ -169,7 +193,7 @@ def select(cfg, stats, sim_idx: int, depth_cap: int, levels: int):
                 float(cfg.fpu), int(cfg.fpu > 0),
                 int(bool(cfg.forced_playouts)),
                 float(cfg.k_forced), float(sim_idx), out64.data_ptr(),
-                depth.data_ptr(), paths.data_ptr(),
+                depth.data_ptr(), paths.data_ptr(), smem,
                 torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"descent kernel launch failed: CUDA error "

@@ -13,10 +13,11 @@ Phases (each raises on failure):
    call, and the backup's host cost with and without operand building;
    the descent kernel on made-up trees and, in every output, on every
    simulation of searches at B=1024/M=65, B=256/M=129, B=64/M=129 and
-   B=1/M=1601 (review, no depth cap), its device time at those shapes
-   beside its bound (the larger of its bytes and its latency floor, a
-   dependent L2 load per level, probed with ``ops/csrc/l2_chase.cu``) and
-   the plain version's device and host time;
+   B=1/M=1601 (review, no depth cap), its device time and its host time
+   per call at those shapes beside its bound (the larger of its bytes and
+   its latency floor, a dependent L2 load per level, probed with
+   ``ops/csrc/l2_chase.cu``), the launch floor (the device time of that
+   file's empty kernel) and the plain version's device and host time;
 3. search: B=1024 boards, 64 sims, root noise on, with the v1 width-128
    net of ``runs/r6/best.pt``; asserts the visit counts and that the
    backup and descent kernels ran once per simulation; one profiled search
@@ -611,10 +612,12 @@ def _made_up_trees(g, dev):
     """Descent cases a search rarely gives, as ``(cfg, stats, sim_idx,
     depth_cap)``: random child pointers (some terminal, some -0.0, cycles
     that run to the cap), priors and values on coarse grids (ties in u),
+    NaN value sums on some visited edges of every 11th board,
     rows with one prior on every valid edge and no visits (exact ties),
     all-invalid rows at the root and below, fpu > 0, = 0 and < 0, forced
-    playouts on and off, caps of 0, 1 and 6 levels, and rows of 700 edges
-    (two of the kernel's column tiles)."""
+    playouts on and off, caps of 0, 1 and 6 levels, rows of 700 edges
+    (24,624 bytes of the kernel's shared memory per block) and of 1,600
+    (53,424 bytes: above the 48 KB a kernel may use without opting in)."""
     import torch
     from alphazero_tpu_torch.ops import descent as D
     from alphazero_tpu_torch.search import mcts as M
@@ -644,6 +647,9 @@ def _made_up_trees(g, dev):
         st[1::5, :, D.EN, :A] = 0.0
         st[2::9, 0, D.PVALID, :A] = -1.0
         st[3::7, 1:, D.PVALID, :A] = -1.0
+        nan = (r(*shape) < 0.05) & (en > 0)
+        st[4::11, :, D.EW, :A] = torch.where(
+            nan[4::11], torch.nan, st[4::11, :, D.EW, :A])
         return st
 
     cases = []
@@ -654,7 +660,8 @@ def _made_up_trees(g, dev):
             (512, 40, 409, 0.3, False, 39, 0.5, 5),
             (512, 40, 409, 0.0, True, 1, 0.9, 20),
             (64, 20, 409, 0.25, True, 0, 0.5, 9),
-            (64, 20, 700, 0.25, True, 19, 0.7, 44)):
+            (64, 20, 700, 0.25, True, 19, 0.7, 44),
+            (16, 12, 1600, 0.25, True, 11, 0.7, 30)):
         cfg = M.MCTSConfig(cpuct=1.25, fpu=fpu, forced_playouts=forced,
                            k_forced=0.5)
         cases.append((cfg, tree(B, Mx, A, p_child), sim, cap))
@@ -762,15 +769,44 @@ def _l2_latency_ms():
     return statistics.median(times) / steps
 
 
+def _noop():
+    """``ops/csrc/l2_chase.cu``'s empty kernel, launched once; ``_noop.
+    launches`` counts the launches, as a kernel wrapper's count does."""
+    import ctypes
+    import torch
+    from alphazero_tpu_torch.ops import _build
+    launch = _build.load("l2_chase").noop_launch
+    launch.argtypes = [ctypes.c_void_p]
+    err = launch(torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"noop launch failed: CUDA error {err}")
+    _noop.launches += 1
+
+
+_noop.launches = 0
+
+
+def _launch_floor_ms():
+    """The device time of an empty kernel (``_noop``), timed as
+    ``_descent_times`` times the descent: the median over 5 profiled calls
+    of 64 launches."""
+    def calls():
+        for _ in range(64):
+            _noop()
+    return _device_ms(calls, "noop_kernel", per_call=64, counter=_noop)
+
+
 def _descent_times(kept, l2_ms):
-    """The kernel's device ms per launch on the kept trees, the plain
-    version's device ms and synchronized host ms per call, and the least
-    time ``bound_ms``, the largest of three: bytes (per board, per level
-    visited, the three edge lanes, three node floats and the child float
-    read, and the outputs written once) at 3.35 TB/s, 6 float operations
-    per edge visited at 67 TFLOP/s (those two are ``work_bound_ms``, the
-    kernels line's bound), and the latency floor, one dependent L2 load per
-    level of the deepest path; means over the kept launches."""
+    """The kernel's device ms per launch on the kept trees and its
+    synchronized host ms per ``select`` call (median of 3 calls of 64+
+    launches each), the plain version's device ms and synchronized host ms
+    per call, and the least time ``bound_ms``, the largest of three: bytes
+    (per board, per level visited, the three edge lanes, three node floats
+    and the child float read, and the outputs written once) at 3.35 TB/s,
+    6 float operations per edge visited at 67 TFLOP/s (those two are
+    ``work_bound_ms``, the kernels line's bound), and the latency floor,
+    one dependent L2 load per level of the deepest path; means over the
+    kept launches."""
     from alphazero_tpu_torch.ops import descent as D
     n = len(kept)
     # the profiler may lose a tenth of the records of one profiled call, so
@@ -787,6 +823,7 @@ def _descent_times(kept, l2_ms):
             D.select_plain(cfg, st, i, cap, lv)
     out = {"ms": _device_ms(kernel, "descent_kernel", per_call=rounds * n,
                             counter=D.select),
+           "host_ms": _time_host_ms(kernel, reps=3) / (rounds * n),
            "plain_ms": _device_ms(plain, warmup=1, per_call=n),
            "plain_host_ms": _time_host_ms(plain, reps=3) / n}
     nbytes = ops = floor = levels = deepest = 0.0
@@ -828,8 +865,10 @@ def _descent_kernel_phase(g):
     if worst != 0.0:
         raise AssertionError(f"descent made-up case disagrees: {worst}")
     l2_ms = _l2_latency_ms()
+    floor_ms = _launch_floor_ms()
     print(f"dependent L2 load latency {l2_ms * 1e6:.1f} ns (l2_chase over "
-          f"2**17 links)", flush=True)
+          f"2**17 links); launch floor {floor_ms * 1e3:.3f} us (the device "
+          f"time of an empty kernel, median of 5 calls of 64)", flush=True)
     shapes, err = {}, worst
     for B, S, kind, every in DESCENT_SHAPES:
         kept, e = _check_descent_search(B, S, kind, every)
@@ -847,14 +886,17 @@ def _descent_kernel_phase(g):
               f"{t['work_bound_ms'] * 1e3:.4f} us, {t['work_bound_by']}; "
               f"latency floor {t['latency_floor_ms'] * 1e3:.4f} us at "
               f"{t['deepest']:.0f} levels deepest; mean levels "
-              f"{t['mean_levels']:.3f}), plain "
+              f"{t['mean_levels']:.3f}; launch floor "
+              f"{floor_ms * 1e3:.3f} us), kernel host "
+              f"{t['host_ms'] * 1e3:.1f} us per select call, plain "
               f"device {t['plain_ms'] * 1e3:.1f} us, host "
               f"{t['plain_host_ms'] * 1e3:.1f} us per call", flush=True)
         del kept
         torch.cuda.empty_cache()
     main = shapes["B1024_M65"]
     return dict(max_abs_err=err, made_up_cases=n_cases, capped=capped,
-                l2_latency_ms=l2_ms, shapes=shapes, **{
+                l2_latency_ms=l2_ms, launch_floor_ms=floor_ms,
+                shapes=shapes, **{
                     k: main[k] for k in ("ms", "plain_ms", "work_bound_ms",
                                          "work_bound_by", "latency_floor_ms")})
 
