@@ -23,6 +23,15 @@ its running statistics by momentum 0.99 with that same biased variance
 (``nn.BatchNorm1d`` would move them with the unbiased one); dropout draws
 its mask from an explicit ``torch.Generator``.  The heads always compute in
 float32, with the ``LOW_VALUE`` mask before the policy's log-softmax.
+
+``NetConfig.dtype="bfloat16"`` runs the trunk in bf16 as the Flax modules
+do with ``dtype=bfloat16``: a Dense casts its input, kernel and bias to
+bf16 (the product in bf16, then the bias added in bf16); BatchNorm computes
+its statistics and the normalization in float32 and returns bf16; the
+pooling, ReLU, dropout and the residual adds run in bf16, a mean as a
+float32 mean rounded once.  The trunk's output returns to float32 before
+the heads.  Parameters and running statistics stay float32 in either
+dtype, so ``from_flax`` / ``to_flax`` and checkpoints are the same.
 """
 
 from __future__ import annotations
@@ -66,11 +75,31 @@ class NetConfig:
         return 2 * self.max_score_diff + 1
 
 
+def _mean(x, dim):
+    """``x.mean(dim)``; a bf16 mean as JAX's: summed and divided in float32,
+    then rounded once."""
+    if x.dtype == torch.float32:
+        return x.mean(dim)
+    return x.float().mean(dim).to(x.dtype)
+
+
+def _dense(lin: nn.Linear, x):
+    """Flax ``Dense`` at the input's dtype: in float32 the module itself;
+    in bf16 the kernel and bias cast to bf16, the product rounded to bf16,
+    then the bias added in bf16."""
+    if x.dtype == torch.float32:
+        return lin(x)
+    return (torch.matmul(x, lin.weight.to(x.dtype).t())
+            + lin.bias.to(x.dtype))
+
+
 class FlaxBatchNorm(nn.BatchNorm1d):
     """``BatchNorm1d`` (eps 1e-5, the feature dim 1) whose train mode is
     Flax's: batch statistics with the biased variance, and the running
     statistics moved by ``BN_MOMENTUM`` with that same variance.  Eval mode
-    normalizes with the running statistics, as ``BatchNorm1d`` does."""
+    normalizes with the running statistics, as ``BatchNorm1d`` does.  A bf16
+    input is normalized in float32 with Flax's ``(x - mean) * (rsqrt(var +
+    eps) * scale) + bias`` and returned as bf16, in either mode."""
 
     dp = None                  # a DataParallel while data_parallel is open
 
@@ -78,8 +107,14 @@ class FlaxBatchNorm(nn.BatchNorm1d):
         super().__init__(channels, eps=1e-5, momentum=1.0 - BN_MOMENTUM)
 
     def forward(self, x):
-        if not self.training:
+        if not self.training and x.dtype == torch.float32:
             return super().forward(x)
+        dt, x = x.dtype, x.float()
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        if not self.training:
+            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            return ((x - self.running_mean.view(shape)) * mul.view(shape)
+                    + self.bias.view(shape)).to(dt)
         dims = [0] + list(range(2, x.dim()))
         if self.dp is None:
             mean, msq = x.mean(dims), (x * x).mean(dims)
@@ -94,9 +129,9 @@ class FlaxBatchNorm(nn.BatchNorm1d):
         with torch.no_grad():
             self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
             self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
-        shape = [1, -1] + [1] * (x.dim() - 2)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return ((x - mean.view(shape)) * mul.view(shape)
+                + self.bias.view(shape)).to(dt)
 
 
 class DenseAndPartialGPool(nn.Module):
@@ -115,8 +150,8 @@ class DenseAndPartialGPool(nn.Module):
     def forward(self, x):
         g = x[..., :self.pool_len].reshape(*x.shape[:-1], self.nb_groups,
                                            self.nb_items)
-        d = F.relu(self.bn(self.dense(x[..., self.pool_len:])))
-        return torch.cat([g.amax(-1), g.mean(-1), d], -1)
+        d = F.relu(self.bn(_dense(self.dense, x[..., self.pool_len:])))
+        return torch.cat([g.amax(-1), _mean(g, -1), d], -1)
 
 
 def _flatten_and_partial_gpool(x, length_to_pool: int,
@@ -127,7 +162,7 @@ def _flatten_and_partial_gpool(x, length_to_pool: int,
     xb, xe = x[:, :, :length_to_pool], x[:, :, length_to_pool:]
     first = xb[:, :nb_channels_to_pool]
     last = xb[:, nb_channels_to_pool:]
-    out = torch.cat([first.amax(1), first.mean(1), last.reshape(b, -1),
+    out = torch.cat([first.amax(1), _mean(first, 1), last.reshape(b, -1),
                      xe.reshape(b, -1)], -1)
     return out[:, None, :]
 
@@ -172,10 +207,12 @@ class _Net(nn.Module):
         if cfg.nn_version not in versions:
             raise ValueError(f"nn_version {cfg.nn_version} is not a version "
                              f"of {type(self).__name__} {sorted(versions)}")
-        if cfg.dtype != "float32":
-            raise ValueError(f"dtype {cfg.dtype!r}: the port's net computes "
-                             f"in float32")
+        dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+        if cfg.dtype not in dtypes:
+            raise ValueError(f"dtype {cfg.dtype!r}: the trunk computes in "
+                             f"{' or '.join(dtypes)}")
         self.cfg = cfg
+        self.dt = dtypes[cfg.dtype]
 
     def _add_heads(self, w: int, first: int):
         """``dense_{first}..dense_{first+5}``: (hidden, out) for PI, V and
@@ -194,13 +231,16 @@ class _Net(nn.Module):
         if not self.training or rate == 0.0:
             return x
         keep = 1.0 - rate
+        if x.dtype != torch.float32:
+            # Flax divides by the keep rate cast to the input's dtype
+            keep = float(torch.tensor(keep, dtype=x.dtype))
         if self.dp is None:
             u = torch.rand(x.shape, generator=generator, device=x.device)
         else:
             b, (r, w) = x.shape[0], self.dp[1:]
             u = torch.rand((b * w,) + x.shape[1:], generator=generator,
                            device=x.device)[r * b:(r + 1) * b]
-        mask = u < keep
+        mask = u < 1.0 - rate
         return torch.where(mask, x / keep, 0.0)
 
     def _head_outputs(self, x, valid_actions):
@@ -237,18 +277,18 @@ class SplendorNet(_Net):
         (log_pi (B, A), v (B, P), log_sdiff (B, num_scdiffs, 31))."""
         def drop(y):
             return self._drop(y, generator)
-        x = boards.transpose(-1, -2).to(torch.float32)       # (B, 7, nb_vect)
-        x = F.relu(self.bn_0(self.dense_0(x)))
-        x = F.relu(self.dense_1(x))
+        x = boards.transpose(-1, -2).to(self.dt)             # (B, 7, nb_vect)
+        x = F.relu(self.bn_0(_dense(self.dense_0, x)))
+        x = F.relu(_dense(self.dense_1, x))
         x = drop(self.gpool_0(x))
-        x = drop(F.relu(self.dense_2(x)))
+        x = drop(F.relu(_dense(self.dense_2, x)))
         x = _flatten_and_partial_gpool(x, self.cfg.width // 2, 5)
-        x = drop(F.relu(self.dense_3(x)))
+        x = drop(F.relu(_dense(self.dense_3, x)))
         x = drop(self.gpool_1(x))
-        x = F.relu(self.bn_1(self.dense_4(x)))
-        x = drop(F.relu(self.dense_5(x)))
+        x = F.relu(self.bn_1(_dense(self.dense_4, x)))
+        x = drop(F.relu(_dense(self.dense_5, x)))
         x = drop(self.gpool_2(x))
-        return self._head_outputs(x[:, 0, :], valid_actions)
+        return self._head_outputs(x[:, 0, :].float(), valid_actions)
 
 
 class SplendorNetV2(_Net):
@@ -272,18 +312,18 @@ class SplendorNetV2(_Net):
 
     def forward(self, boards, valid_actions, generator=None):
         """Same contract as ``SplendorNet.forward``."""
-        x = boards.transpose(-1, -2).to(torch.float32)       # (B, 7, nb_vect)
-        x = F.relu(self.bn_0(self.dense_0(x)))
-        x = F.relu(self.dense_1(x))
+        x = boards.transpose(-1, -2).to(self.dt)             # (B, 7, nb_vect)
+        x = F.relu(self.bn_0(_dense(self.dense_0, x)))
+        x = F.relu(_dense(self.dense_1, x))
         x = self._drop(self.gpool_0(x), generator)
         x = _flatten_and_partial_gpool(x, self.w // 2, 5)[:, 0, :]
-        x = F.relu(self.dense_2(x))
+        x = F.relu(_dense(self.dense_2, x))
         for r in range(2):
             h = F.relu(getattr(self, f"bn_{1 + r}")(x))
-            h = F.relu(getattr(self, f"dense_{3 + 2 * r}")(h))
-            x = x + self._drop(getattr(self, f"dense_{4 + 2 * r}")(h),
+            h = F.relu(_dense(getattr(self, f"dense_{3 + 2 * r}"), h))
+            x = x + self._drop(_dense(getattr(self, f"dense_{4 + 2 * r}"), h),
                                generator)
-        return self._head_outputs(x, valid_actions)
+        return self._head_outputs(x.float(), valid_actions)
 
 
 # nn_version registry: versions 0 and 1 share the reference layer stack (the

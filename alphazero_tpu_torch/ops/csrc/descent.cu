@@ -24,6 +24,22 @@
 // recorded) as int32, and path_p / path_a / path_r [depth_cap] int32 with
 // the sentinels M, 0, 0 past the stop: what the plain version returns.
 //
+// Element types.  The kernel is a template on the stats element type: the
+// float32 instantiation, and a bfloat16 one for MCTSConfig.stats_dtype =
+// "bfloat16" (the JAX search's bf16 tree stats, which _select upcasts to
+// float32 row by row before any arithmetic).  The bf16 kernel converts each
+// element to float32 as it reads it from shared memory, then scores,
+// orders and reduces exactly as the float32 one.  A bf16 row is 8 * C
+// bytes (3,288 at A = 409), so its start is 16-byte aligned only for even
+// b * M + node and the bulk copy cannot take it whole: thread 0 copies the
+// 16-byte-aligned span from the 16-byte boundary at or below the row's
+// start to the one at or below its end, and reads the last 8 bytes beyond
+// that (when the end is not aligned) with an ordinary load, which it
+// stores to shared memory before a second arrival on the row's barrier.
+// The span never passes the row's end, so the last row of the last board
+// is read in bounds; it may begin 8 bytes before the row (inside the row
+// before it), and the row is read from shared memory at that offset.
+//
 // Exactness.  Every float operation is written with a round-to-nearest
 // intrinsic (__fmul_rn, __fadd_rn, __fdiv_rn, __fsqrt_rn), in the JAX
 // search's association, so nvcc contracts nothing into an FMA and u has the
@@ -73,6 +89,7 @@
 // level bound from the host and no host sync.  Offsets into stats are
 // 64-bit (a reused tree reaches 1.57 GiB).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -99,6 +116,19 @@ constexpr int kTailBytes = 2 * 8 + 2 * kWarps * 3 * 4 + kWarps * kList * 4;
 constexpr int kMaxSmem = 232448;             // what a block may use (227 KB)
 constexpr int kDefaultSmem = 48 * 1024;      // usable without opting in
 constexpr int kMaxDevices = 64;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// Bytes of shared memory one node row takes: a float32 row is copied
+// whole (16 * C bytes), a bf16 row as up to 8 * C + 8 bytes from the
+// 16-byte boundary at or below its start.
+template <typename T>
+__host__ __device__ constexpr int row_buf_bytes(int C) {
+  return sizeof(T) == 4 ? 16 * C : (8 * C + 8 + 15) / 16 * 16;
+}
 
 // torch.argmax's order on floats as an unsigned key, the pick being the
 // largest: NaN above every number, then the larger value, -0.0 equal to
@@ -129,6 +159,44 @@ __device__ __forceinline__ void bulk_copy_row(uint32_t dst, const void* src,
       :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
+// mbarrier arrivals per row copy: the bulk copy's, and for bf16 rows a
+// second one once the row's unaligned last 8 bytes are in shared memory
+template <typename T>
+constexpr unsigned kArrivals = sizeof(T) == 4 ? 1u : 2u;
+
+// thread 0: the node row `src` (4 * C elements) on its way to the row
+// buffer `buf` (16-byte aligned), completing on `bar`
+__device__ __forceinline__ void start_row_copy(unsigned char* buf,
+                                               const float* src, int C,
+                                               uint32_t bar) {
+  bulk_copy_row(smem_addr(buf), src, static_cast<uint32_t>(16 * C), bar);
+}
+
+__device__ __forceinline__ void start_row_copy(unsigned char* buf,
+                                               const __nv_bfloat16* src,
+                                               int C, uint32_t bar) {
+  const uintptr_t s = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t e = s + 8 * static_cast<uintptr_t>(C);
+  const uintptr_t s16 = s & ~static_cast<uintptr_t>(15);
+  const uintptr_t e16 = e & ~static_cast<uintptr_t>(15);
+  bulk_copy_row(smem_addr(buf), reinterpret_cast<const void*>(s16),
+                static_cast<uint32_t>(e16 - s16), bar);
+  if (e16 != e)
+    *reinterpret_cast<uint2*>(buf + (e16 - s16)) =
+        __ldg(reinterpret_cast<const uint2*>(e16));
+  // release: the tail's store is seen by every thread that waits on bar
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// where the row start_row_copy copied to `buf` begins in shared memory
+template <typename T>
+__device__ __forceinline__ const T* row_in(const unsigned char* buf,
+                                           const T* src) {
+  return reinterpret_cast<const T*>(
+      buf + (sizeof(T) == 4 ? 0 : reinterpret_cast<uintptr_t>(src) & 15));
+}
+
 __device__ __forceinline__ void wait_parity(uint32_t bar, uint32_t parity) {
   uint32_t done;
   do {
@@ -151,8 +219,9 @@ __device__ __forceinline__ unsigned list_push(int* list, unsigned n, bool take,
   return n + __popc(m);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-descent_kernel(const float* __restrict__ stats, int M, int C, int depth_cap,
+descent_kernel(const T* __restrict__ stats, int M, int C, int depth_cap,
                float cpuct, float fpu, int fpu_from_parent, int forced,
                float k_forced, float sim_f, long long* __restrict__ out64,
                int B, int* __restrict__ depth_out, int* __restrict__ paths) {
@@ -162,15 +231,15 @@ descent_kernel(const float* __restrict__ stats, int M, int C, int depth_cap,
   const int lane = tid % kWarp, warp = tid / kWarp;
   const int A = C - 2;
   const long long node_stride = 4LL * C;
-  const uint32_t row_bytes = static_cast<uint32_t>(16 * C);
-  float* rows = reinterpret_cast<float*>(smem);            // [2][4 * C]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + 2 * row_bytes);
+  const int row_buf = row_buf_bytes<T>(C);
+  unsigned char* rows = smem;                              // [2][row_buf]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + 2 * row_buf);
   unsigned* win_h = reinterpret_cast<unsigned*>(bars + 2); // [2][kWarps]
   int* win_c = reinterpret_cast<int*>(win_h + 2 * kWarps); // [2][kWarps]
   int* win_f = win_c + 2 * kWarps;                         // [2][kWarps]
   int* list = win_f + 2 * kWarps + warp * kList;           // this warp's
 
-  const float* board = stats + static_cast<long long>(b) * M * node_stride;
+  const T* board = stats + static_cast<long long>(b) * M * node_stride;
   const long long plane = static_cast<long long>(B) * depth_cap;
   int* pp = paths + static_cast<long long>(b) * depth_cap;
   int* pa = pp + plane;
@@ -178,26 +247,26 @@ descent_kernel(const float* __restrict__ stats, int M, int C, int depth_cap,
 
   if (tid == 0) {
     for (int k = 0; k < 2; ++k)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-                   :: "r"(smem_addr(bars + k)) : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                   :: "r"(smem_addr(bars + k)), "r"(kArrivals<T>) : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     // the root's row is on its way while the block meets
-    if (depth_cap > 0)
-      bulk_copy_row(smem_addr(rows), board, row_bytes, smem_addr(bars));
+    if (depth_cap > 0) start_row_copy(rows, board, C, smem_addr(bars));
   }
   __syncthreads();
 
   // the node's visit count and value sum, loaded beside the row's copy
   float ns = 0.0f, ws = 0.0f;
   if (depth_cap > 0) {
-    ns = __ldg(board + kEN * C + A);
-    ws = __ldg(board + kEW * C + A);
+    ns = to_f(__ldg(board + kEN * C + A));
+    ws = to_f(__ldg(board + kEW * C + A));
   }
+  const T* src = board;                      // the row being read
   long long node = 0, parent = 0, action = 0, existing = 0, prot = 0;
   int level = 0;
   while (level < depth_cap) {
     const int set = level & 1;
-    const float* row = rows + set * 4 * C;
+    const T* row = row_in(rows + set * row_buf, src);
     const float fpu_init =
         fpu_from_parent ? __fsub_rn(__fdiv_rn(ws, __fadd_rn(ns, 1.0f)), fpu)
                         : fpu;
@@ -207,7 +276,7 @@ descent_kernel(const float* __restrict__ stats, int M, int C, int depth_cap,
     const float sq_eps = ns_eps == ns ? sq : __fsqrt_rn(ns_eps);
     // the barrier of this set completes once per use: levels set, set + 2, ..
     wait_parity(smem_addr(bars + set), static_cast<uint32_t>(level >> 1) & 1u);
-    const long long rot = static_cast<long long>(row[kChild * C + A]);
+    const long long rot = static_cast<long long>(to_f(row[kChild * C + A]));
     const bool force_here = forced && node == 0;
 
     // Scores.  Only valid columns can win unless every u is -inf, and
@@ -226,7 +295,7 @@ descent_kernel(const float* __restrict__ stats, int M, int C, int depth_cap,
 #pragma unroll
       for (int k = 0; k < kPer; ++k) {
         const int c = base + k * kThreads + tid;
-        pv[k] = c < A ? row[kPValid * C + c] : -1.0f;
+        pv[k] = c < A ? to_f(row[kPValid * C + c]) : -1.0f;
       }
       unsigned n = 0;
 #pragma unroll
@@ -236,12 +305,12 @@ descent_kernel(const float* __restrict__ stats, int M, int C, int depth_cap,
       __syncwarp();
       for (unsigned j = lane; j < n; j += kWarp) {
         const int c = list[j];
-        const float p = row[kPValid * C + c];
-        const float e = row[kEN * C + c];
+        const float p = to_f(row[kPValid * C + c]);
+        const float e = to_f(row[kEN * C + c]);
         const float cp = __fmul_rn(cpuct, p);
         float u;
         if (e > 0.0f) {
-          const float q = __fdiv_rn(row[kEW * C + c], fmaxf(e, 1.0f));
+          const float q = __fdiv_rn(to_f(row[kEW * C + c]), fmaxf(e, 1.0f));
           u = __fadd_rn(q, __fdiv_rn(__fmul_rn(cp, sq), __fadd_rn(1.0f, e)));
         } else {
           u = __fadd_rn(fpu_init, __fmul_rn(cp, sq_eps));
@@ -286,17 +355,17 @@ descent_kernel(const float* __restrict__ stats, int M, int C, int depth_cap,
     const int a = first_forced < A      ? first_forced
                   : best_h > kKeyNegInf ? best_c
                                         : 0;
-    const float child_raw = row[kChild * C + a];
+    const float child_raw = to_f(row[kChild * C + a]);
     const long long child = static_cast<long long>(fabsf(child_raw));
     const bool stop = child == 0 || child_raw < 0.0f || level + 1 >= depth_cap;
     // the next level's row is on its way before this level's records
+    if (!stop) src = board + child * node_stride;
     if (tid == 0 && !stop)
-      bulk_copy_row(smem_addr(rows + (set ^ 1) * 4 * C),
-                    board + child * node_stride, row_bytes,
-                    smem_addr(bars + (set ^ 1)));
+      start_row_copy(rows + (set ^ 1) * row_buf, src, C,
+                     smem_addr(bars + (set ^ 1)));
     if (!stop) {
-      ns = __ldg(board + child * node_stride + kEN * C + A);
-      ws = __ldg(board + child * node_stride + kEW * C + A);
+      ns = to_f(__ldg(src + kEN * C + A));
+      ws = to_f(__ldg(src + kEW * C + A));
     }
     if (tid == 0) {
       pp[level] = static_cast<int>(node);
@@ -329,17 +398,18 @@ descent_kernel(const float* __restrict__ stats, int M, int C, int depth_cap,
 
 // out64: [4, B] int64 (parent, action, existing, parent_rot); depth: [B]
 // int32; paths: [3, B, depth_cap] int32 (path_p, path_a, path_r).
-// smem_bytes is ops/descent.py::smem_bytes(C); stats must be 16-byte
-// aligned.  Returns the CUDA error code (cudaErrorInvalidValue where
-// smem_bytes is not what the kernel lays out or exceeds a block's share).
-extern "C" int descent_launch(const float* stats, int B, int M, int C,
-                              int depth_cap, float cpuct, float fpu,
-                              int fpu_from_parent, int forced, float k_forced,
-                              float sim_f, long long* out64, int* depth,
-                              int* paths, int smem_bytes, void* stream) {
+// smem_bytes is ops/descent.py::smem_bytes(C, element size); stats must be
+// 16-byte aligned.  Returns the CUDA error code (cudaErrorInvalidValue
+// where smem_bytes is not what the kernel lays out or exceeds a block's
+// share).
+template <typename T>
+static int launch(const T* stats, int B, int M, int C, int depth_cap,
+                  float cpuct, float fpu, int fpu_from_parent, int forced,
+                  float k_forced, float sim_f, long long* out64, int* depth,
+                  int* paths, int smem_bytes, void* stream) {
   if (B <= 0) return 0;
-  if (C < 3 || smem_bytes != 32 * C + kTailBytes || smem_bytes > kMaxSmem ||
-      reinterpret_cast<uintptr_t>(stats) % 16 != 0)
+  if (C < 3 || smem_bytes != 2 * row_buf_bytes<T>(C) + kTailBytes ||
+      smem_bytes > kMaxSmem || reinterpret_cast<uintptr_t>(stats) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (smem_bytes > kDefaultSmem) {
     // opt in once per device, to the most a block may use
@@ -348,16 +418,38 @@ extern "C" int descent_launch(const float* stats, int B, int M, int C,
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev >= kMaxDevices || !opted_in[dev]) {
-      err = cudaFuncSetAttribute(descent_kernel,
+      err = cudaFuncSetAttribute(descent_kernel<T>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  kMaxSmem);
       if (err != cudaSuccess) return static_cast<int>(err);
       if (dev < kMaxDevices) opted_in[dev] = true;
     }
   }
-  descent_kernel<<<B, kThreads, smem_bytes,
-                   static_cast<cudaStream_t>(stream)>>>(
+  descent_kernel<T><<<B, kThreads, smem_bytes,
+                      static_cast<cudaStream_t>(stream)>>>(
       stats, M, C, depth_cap, cpuct, fpu, fpu_from_parent, forced, k_forced,
       sim_f, out64, B, depth, paths);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int descent_launch(const float* stats, int B, int M, int C,
+                              int depth_cap, float cpuct, float fpu,
+                              int fpu_from_parent, int forced, float k_forced,
+                              float sim_f, long long* out64, int* depth,
+                              int* paths, int smem_bytes, void* stream) {
+  return launch(stats, B, M, C, depth_cap, cpuct, fpu, fpu_from_parent,
+                forced, k_forced, sim_f, out64, depth, paths, smem_bytes,
+                stream);
+}
+
+// the same on bfloat16 stats
+extern "C" int descent_bf16_launch(const void* stats, int B, int M, int C,
+                                   int depth_cap, float cpuct, float fpu,
+                                   int fpu_from_parent, int forced,
+                                   float k_forced, float sim_f,
+                                   long long* out64, int* depth, int* paths,
+                                   int smem_bytes, void* stream) {
+  return launch(static_cast<const __nv_bfloat16*>(stats), B, M, C, depth_cap,
+                cpuct, fpu, fpu_from_parent, forced, k_forced, sim_f, out64,
+                depth, paths, smem_bytes, stream);
 }

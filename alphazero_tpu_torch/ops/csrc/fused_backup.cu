@@ -68,7 +68,24 @@
 //    B = 1024, and one block to an SM at self-play's B = 64.
 // Float32 throughout (the Pallas kernel used a bf16 one-hot matmul), so the
 // result equals the plain version's bit for bit.
+//
+// bfloat16 stats (MCTSConfig.stats_dtype = "bfloat16") take the entry only:
+// fused_backup_entry_kernel is a template on the stats element type, and the
+// operand contract and the split stay float32, as the Pallas kernel is.
+// The JAX update on bf16 stats is stats + bf16(delta) + bf16(row_add), where
+// delta is one element's float32 sum over levels (and the two halves of the
+// child pointer), each addend rounded to bf16 before its add and each add
+// rounded to bf16 (the row's after the path's where they meet).  So the bf16
+// walker sums an element's levels in float32 in level order, from 0, rounds
+// the sum to bf16 (nearest even) and then adds it to the old value with one
+// more rounding; the child pointer and each node scalar are one addend
+// each.  The prior row's lane PVALID receives bf16(p + 1) by
+// red.global.add.noftz.bf16x2 (pairs of columns; a row starts 8-byte
+// aligned, so a pair is 4-byte aligned), and a lone last column by the
+// bf16 form: the add rounds to nearest even, as the JAX add does, and an
+// element receives no other add.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -84,43 +101,90 @@ constexpr int kBlocksPerSM = 8;  // 1024 boards resident on 132 SMs: 64 register
 constexpr int kOperandBatch = 5; // float4 a row thread holds of a row [4, C]
 constexpr int kEntryBatch = 2;   // ... and of pvalid_new [A]
 constexpr int kBatch = 4;        // ... and has in flight in what lies beyond
+constexpr int kBf16Pairs = 3;    // bf16 column pairs a row thread has in flight
 constexpr int kSpecLevels = 8;   // levels the entry reads before it knows the depth
 constexpr int kChildLane = 23;   // the entry's lane for the child install
 constexpr int kNodeLane0 = 24;   // the entry's lanes 24..31 add the node scalars
 
-// Up to 32 levels of one board's path, one per lane.
-struct Levels {
-  float* r;                        // the level's node row
-  int p, a;                        // p = -1 where the lane holds no live level
-  float w_en, w_ew;
-  float en_a, ew_a, en_n, ew_n;    // old values, then the sums to store
+// How an element of stats takes its adds.  A float32 element sums its
+// addends onto the old value one by one.  A bf16 element sums them in
+// float32 from 0, then adds bf16(sum) to the old value, rounding to bf16.
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  static __device__ __forceinline__ float get(const float* p) { return *p; }
+  static __device__ __forceinline__ float start(float old) { return old; }
+  static __device__ __forceinline__ void put(float* p, float, float sum) {
+    *p = sum;
+  }
 };
 
-__device__ __forceinline__ void levels_load(Levels& L, float* sb,
+template <>
+struct Elem<__nv_bfloat16> {
+  static __device__ __forceinline__ float get(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
+  static __device__ __forceinline__ float start(float) { return 0.0f; }
+  static __device__ __forceinline__ void put(__nv_bfloat16* p, float old,
+                                             float sum) {
+    *p = __float2bfloat16_rn(
+        __fadd_rn(old, __bfloat162float(__float2bfloat16_rn(sum))));
+  }
+};
+
+// *p receives one addend x
+template <typename T>
+__device__ __forceinline__ void add_one(T* p, float x) {
+  const float old = Elem<T>::get(p);
+  Elem<T>::put(p, old, Elem<T>::start(old) + x);
+}
+
+// Up to 32 levels of one board's path, one per lane.
+template <typename T>
+struct Levels {
+  T* r;                            // the level's node row
+  int p, a;                        // p = -1 where the lane holds no live level
+  float w_en, w_ew;
+  float o_en_a, o_ew_a, o_en_n, o_ew_n;  // old values
+  float en_a, ew_a, en_n, ew_n;    // the sums to store
+};
+
+template <typename T>
+__device__ __forceinline__ void levels_load(Levels<T>& L, T* sb,
                                             size_t node_stride, int C,
                                             int node_col) {
+  L.o_en_a = L.o_ew_a = L.o_en_n = L.o_ew_n = 0.0f;
   L.en_a = L.ew_a = L.en_n = L.ew_n = 0.0f;
   L.r = sb;
   if (L.p < 0) return;
   L.r = sb + L.p * node_stride;
-  L.en_a = L.r[kEN * C + L.a];
-  L.ew_a = L.r[kEW * C + L.a];
+  L.o_en_a = Elem<T>::get(L.r + kEN * C + L.a);
+  L.o_ew_a = Elem<T>::get(L.r + kEW * C + L.a);
   if (node_col >= 0) {
-    L.en_n = L.r[kEN * C + node_col];
-    L.ew_n = L.r[kEW * C + node_col];
+    L.o_en_n = Elem<T>::get(L.r + kEN * C + node_col);
+    L.o_ew_n = Elem<T>::get(L.r + kEW * C + node_col);
   }
+  L.en_a = Elem<T>::start(L.o_en_a);
+  L.ew_a = Elem<T>::start(L.o_ew_a);
+  L.en_n = Elem<T>::start(L.o_en_n);
+  L.ew_n = Elem<T>::start(L.o_ew_n);
 }
 
-// Adds the weights to what levels_load read and stores the sums.  All 32
-// lanes call it together.
-__device__ __forceinline__ void levels_store(Levels& L, int C, int node_col,
-                                             int lane) {
+// Adds the weights to what levels_load read: each live lane that owns an
+// element (the first lane of its (p, a), and of its p for the node column)
+// sums the chunk's levels of that element in level order.  All 32 lanes
+// call it together.
+template <typename T>
+__device__ __forceinline__ void levels_sum(Levels<T>& L, int lane,
+                                           bool& own_edge, bool& own_node) {
   const bool live = L.p >= 0;
+  own_edge = own_node = live;
   const unsigned live_mask = __ballot_sync(kFull, live);
   if (live_mask == 0) return;
   // lanes of equal p; a lane without a level gets a key of its own
   const unsigned same_p = __match_any_sync(kFull, live ? L.p : ~lane);
-  bool own_edge = live, own_node = live;
   if (!__any_sync(kFull, same_p != (1u << lane))) {
     L.en_a += L.w_en;
     L.ew_a += L.w_ew;
@@ -150,13 +214,62 @@ __device__ __forceinline__ void levels_store(Levels& L, int C, int node_col,
       }
     }
   }
+}
+
+// Stores the owned sums.
+template <typename T>
+__device__ __forceinline__ void levels_put(const Levels<T>& L, int C,
+                                           int node_col, bool own_edge,
+                                           bool own_node) {
   if (own_edge) {
-    L.r[kEN * C + L.a] = L.en_a;
-    L.r[kEW * C + L.a] = L.ew_a;
+    Elem<T>::put(L.r + kEN * C + L.a, L.o_en_a, L.en_a);
+    Elem<T>::put(L.r + kEW * C + L.a, L.o_ew_a, L.ew_a);
   }
   if (own_node && node_col >= 0) {
-    L.r[kEN * C + node_col] = L.en_n;
-    L.r[kEW * C + node_col] = L.ew_n;
+    Elem<T>::put(L.r + kEN * C + node_col, L.o_en_n, L.en_n);
+    Elem<T>::put(L.r + kEW * C + node_col, L.o_ew_n, L.ew_n);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void levels_store(Levels<T>& L, int C,
+                                             int node_col, int lane) {
+  bool own_edge, own_node;
+  levels_sum(L, lane, own_edge, own_node);
+  levels_put(L, C, node_col, own_edge, own_node);
+}
+
+// A bf16 element takes one rounded sum of all its levels, so on a path of
+// more than one chunk of 32 levels the owner of an element is its first
+// level on the whole path: a live lane of the chunk from `base` gives up
+// what an earlier chunk holds and adds what later chunks hold, in level
+// order, reading their levels from device memory (paths that long occur
+// only on made-up inputs: a fresh bf16 tree has no repeats).  `vals` is
+// value_vec[b] (P <= 4 lanes).
+__device__ __forceinline__ void cross_chunks(
+    Levels<__nv_bfloat16>& L, const int* __restrict__ pp,
+    const int* __restrict__ pa, const int* __restrict__ pr, int lr, int P,
+    const float* vals, int base, int d, bool& own_edge, bool& own_node) {
+  if (L.p < 0) return;
+  for (int k = 0; k < base; ++k) {
+    if (pp[k] == L.p) {
+      own_node = false;
+      if (pa[k] == L.a) own_edge = false;
+    }
+  }
+  for (int k = base + 32; k < d && (own_edge || own_node); ++k) {
+    if (pp[k] != L.p) continue;
+    int m = (pr[k] - lr) % P;
+    if (m < 0) m += P;
+    const float v = vals[m];
+    if (own_node) {
+      L.en_n += 1.0f;
+      L.ew_n += v;
+    }
+    if (own_edge && pa[k] == L.a) {
+      L.en_a += 1.0f;
+      L.ew_a += v;
+    }
   }
 }
 
@@ -226,6 +339,49 @@ __device__ __forceinline__ void add_row(float* dst,
   }
 }
 
+__device__ __forceinline__ void red_add_bf16x2(__nv_bfloat16* p, float lo,
+                                               float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo at p
+  asm volatile("red.global.add.noftz.bf16x2 [%0], %1;\n"
+               :: "l"(__cvta_generic_to_global(p)),
+                  "r"(*reinterpret_cast<const unsigned*>(&v))
+               : "memory");
+}
+
+__device__ __forceinline__ void red_add_bf16(__nv_bfloat16* p, float x) {
+  const __nv_bfloat16 v = __float2bfloat16_rn(x);
+  asm volatile("red.global.add.noftz.bf16 [%0], %1;\n"
+               :: "l"(__cvta_generic_to_global(p)),
+                  "h"(*reinterpret_cast<const unsigned short*>(&v))
+               : "memory");
+}
+
+// The row threads' share of the bf16 prior row: dst[c] += bf16(src[c] + 1)
+// for c < A, the columns in pairs (dst is 4-byte aligned), kN pairs a
+// thread in flight.
+template <int kN>
+__device__ __forceinline__ void add_prior_row_bf16(
+    __nv_bfloat16* dst, const float* __restrict__ src, int A, int rid) {
+  const int np = A >> 1;
+  for (int j0 = rid; j0 < np; j0 += kRowThreads * kN) {
+    float2 v[kN];
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+      const int j = j0 + kRowThreads * k;
+      if (j < np) {
+        v[k].x = __ldg(src + 2 * j) + 1.0f;
+        v[k].y = __ldg(src + 2 * j + 1) + 1.0f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+      const int j = j0 + kRowThreads * k;
+      if (j < np) red_add_bf16x2(dst + 2 * j, v[k].x, v[k].y);
+    }
+  }
+  if ((A & 1) && rid == 0) red_add_bf16(dst + A - 1, __ldg(src + A - 1) + 1.0f);
+}
+
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 fused_backup_operand_kernel(
     float* stats, int M, int C, int node_col, const int* __restrict__ path_p,
@@ -278,7 +434,7 @@ fused_backup_operand_kernel(
               kRowThreads * kOperandBatch);    // a row wider than R
     }
   } else {
-    Levels L;
+    Levels<float> L;
     for (int base = 0; base < S1; base += 32) {
       const int l = base + lane;
       L.p = next_p;               // read one chunk ahead
@@ -312,9 +468,10 @@ fused_backup_operand_kernel(
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 fused_backup_entry_kernel(
-    float* stats, int M, int C, int P, const int* __restrict__ path_p,
+    T* stats, int M, int C, int P, const int* __restrict__ path_p,
     const int* __restrict__ path_a, const int* __restrict__ path_r, int S1,
     const int* __restrict__ depth, const float* __restrict__ value_vec,
     const long long* __restrict__ leaf_rot,
@@ -330,18 +487,23 @@ fused_backup_entry_kernel(
   const int b = blockIdx.x;
   const int A = C - 2;
   const size_t node_stride = static_cast<size_t>(4) * C;
-  float* sb = stats + static_cast<size_t>(b) * M * node_stride;
+  T* sb = stats + static_cast<size_t>(b) * M * node_stride;
 
   if (tid >= 32) {
     // The slot row's lane PVALID needs nothing of the path and shares no
     // element with it.
     const float* src = pvalid_new + static_cast<size_t>(b) * A;
-    RowPart<kEntryBatch> R;
-    R.load(src, A, 1.0f, tid - 32, 0);
-    float* dst = sb + slot[b] * node_stride;
-    R.add(dst, A, tid - 32, 0);
-    add_row(dst, src, A, 1.0f, tid - 32,
-            kRowThreads * kEntryBatch);        // a row wider than R
+    if constexpr (sizeof(T) == 2) {
+      add_prior_row_bf16<kBf16Pairs>(sb + slot[b] * node_stride, src, A,
+                                     tid - 32);
+    } else {
+      RowPart<kEntryBatch> R;
+      R.load(src, A, 1.0f, tid - 32, 0);
+      float* dst = sb + slot[b] * node_stride;
+      R.add(dst, A, tid - 32, 0);
+      add_row(dst, src, A, 1.0f, tid - 32,
+              kRowThreads * kEntryBatch);      // a row wider than R
+    }
     return;
   }
 
@@ -350,13 +512,18 @@ fused_backup_entry_kernel(
   const int* pa = path_a + static_cast<size_t>(b) * S1;
   const int* pr = path_r + static_cast<size_t>(b) * S1;
   const int sl = slot[b];
-  float* dst = sb + sl * node_stride;
+  T* dst = sb + sl * node_stride;
   const int d = min(depth[b], S1);
   const int lr = static_cast<int>(leaf_rot[b]);
   const bool fr = fresh[b] != 0;
   const bool ct = child_term[b] != 0;
   const float vv = lane < P ? value_vec[static_cast<size_t>(b) * P + lane]
                             : 0.0f;
+  float vals[4] = {0.0f, 0.0f, 0.0f, 0.0f};   // value_vec[b], for bf16
+  if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) vals[k] = __shfl_sync(kFull, vv, k);
+  }
   // the node scalars of row slot: lanes 24..27 hold column A of stats lanes
   // 0..3, lanes 28..31 column A + 1; a zero term is left out
   const int t = lane - kNodeLane0;
@@ -380,7 +547,7 @@ fused_backup_entry_kernel(
     cpar = parent[b];
     cact = action[b];
   }
-  Levels L;
+  Levels<T> L;
   int r = 0;
   L.p = M;
   L.a = 0;
@@ -389,7 +556,7 @@ fused_backup_entry_kernel(
     L.a = pa[lane];
     r = pr[lane];
   }
-  float* ne = nullptr;
+  T* ne = nullptr;
   if (has_node_term) ne = dst + (t & 3) * C + A + (t >> 2);
 
   if (lane >= kSpecLevels && lane < d) {
@@ -413,18 +580,26 @@ fused_backup_entry_kernel(
 
   const float cv = fr ? (ct ? -static_cast<float>(sl) : static_cast<float>(sl))
                       : 0.0f;
-  float* ce = nullptr;
+  T* ce = nullptr;
   float child_old = 0.0f;
   if (lane == kChildLane && cv != 0.0f) {
     ce = sb + cpar * node_stride + kChild * C + cact;
-    child_old = *ce;
+    child_old = Elem<T>::get(ce);
   }
   float node_old = 0.0f;
-  if (ne != nullptr && !ordered) node_old = *ne;
+  if (ne != nullptr && !ordered) node_old = Elem<T>::get(ne);
 
-  levels_store(L, C, A, lane);
-  if (ce != nullptr) *ce = child_old + cv;
-  if (ne != nullptr && !ordered) *ne = node_old + node_term;
+  bool own_edge, own_node;
+  levels_sum(L, lane, own_edge, own_node);
+  if constexpr (sizeof(T) == 2) {
+    if (d > 32)
+      cross_chunks(L, pp, pa, pr, lr, P, vals, 0, d, own_edge, own_node);
+  }
+  levels_put(L, C, A, own_edge, own_node);
+  if (ce != nullptr)
+    Elem<T>::put(ce, child_old, Elem<T>::start(child_old) + cv);
+  if (ne != nullptr && !ordered)
+    Elem<T>::put(ne, node_old, Elem<T>::start(node_old) + node_term);
 
   for (int base = 32; base < d; base += 32) {
     const int l = base + lane;
@@ -441,11 +616,14 @@ fused_backup_entry_kernel(
     L.w_ew = __shfl_sync(kFull, vv, m);
     __syncwarp();                 // the chunk before has stored
     levels_load(L, sb, node_stride, C, A);
-    levels_store(L, C, A, lane);
+    levels_sum(L, lane, own_edge, own_node);
+    if constexpr (sizeof(T) == 2)
+      cross_chunks(L, pp, pa, pr, lr, P, vals, base, d, own_edge, own_node);
+    levels_put(L, C, A, own_edge, own_node);
   }
   if (ordered) {
     __syncwarp();                 // the path has stored
-    if (ne != nullptr) *ne += node_term;
+    if (ne != nullptr) add_one(ne, node_term);
   }
 }
 
@@ -466,6 +644,24 @@ extern "C" int fused_backup_launch(float* stats, int B, int M, int C,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+static int entry_launch(
+    T* stats, int B, int M, int C, int P, const int* path_p,
+    const int* path_a, const int* path_r, int S1, const int* depth,
+    const float* value_vec, const long long* leaf_rot, const long long* parent,
+    const long long* action, const unsigned char* fresh, const int* slot,
+    const float* pvalid_new, const unsigned char* child_term,
+    const long long* child_rot, const float* leaf_init_v,
+    long long leaf_init_stride, const float* term_vec, void* stream) {
+  if (B <= 0) return 0;
+  fused_backup_entry_kernel<T><<<B, kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      stats, M, C, P, path_p, path_a, path_r, S1, depth, value_vec, leaf_rot,
+      parent, action, fresh, slot, pvalid_new, child_term, child_rot,
+      leaf_init_v, leaf_init_stride, term_vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int fused_backup_entry_launch(
     float* stats, int B, int M, int C, int P, const int* path_p,
     const int* path_a, const int* path_r, int S1, const int* depth,
@@ -474,11 +670,23 @@ extern "C" int fused_backup_entry_launch(
     const float* pvalid_new, const unsigned char* child_term,
     const long long* child_rot, const float* leaf_init_v,
     long long leaf_init_stride, const float* term_vec, void* stream) {
-  if (B <= 0) return 0;
-  fused_backup_entry_kernel<<<B, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      stats, M, C, P, path_p, path_a, path_r, S1, depth, value_vec, leaf_rot,
-      parent, action, fresh, slot, pvalid_new, child_term, child_rot,
-      leaf_init_v, leaf_init_stride, term_vec);
-  return static_cast<int>(cudaGetLastError());
+  return entry_launch(stats, B, M, C, P, path_p, path_a, path_r, S1, depth,
+                      value_vec, leaf_rot, parent, action, fresh, slot,
+                      pvalid_new, child_term, child_rot, leaf_init_v,
+                      leaf_init_stride, term_vec, stream);
+}
+
+// the entry on bfloat16 stats
+extern "C" int fused_backup_entry_bf16_launch(
+    void* stats, int B, int M, int C, int P, const int* path_p,
+    const int* path_a, const int* path_r, int S1, const int* depth,
+    const float* value_vec, const long long* leaf_rot, const long long* parent,
+    const long long* action, const unsigned char* fresh, const int* slot,
+    const float* pvalid_new, const unsigned char* child_term,
+    const long long* child_rot, const float* leaf_init_v,
+    long long leaf_init_stride, const float* term_vec, void* stream) {
+  return entry_launch(static_cast<__nv_bfloat16*>(stats), B, M, C, P, path_p,
+                      path_a, path_r, S1, depth, value_vec, leaf_rot, parent,
+                      action, fresh, slot, pvalid_new, child_term, child_rot,
+                      leaf_init_v, leaf_init_stride, term_vec, stream);
 }

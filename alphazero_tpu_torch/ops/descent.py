@@ -14,6 +14,10 @@ board, each running until its path stops, each level's node row brought
 whole into shared memory by one TMA bulk copy) or raises.
 ``select.launches`` counts the kernel's launches.
 
+Stats are float32 or bfloat16 (``MCTSConfig.stats_dtype``); like the JAX
+descent, both versions upcast each node row to float32 before any
+arithmetic, so a bf16 tree is scored as the float32 tree of its values.
+
 Precondition, not checked on the card (it would cost a device sync): every
 child pointer ``|stats[b, n, CHILD, a]|`` lies in ``[0, M)``.  On the CPU an
 index outside raises.
@@ -38,6 +42,8 @@ EPS = 1e-8
 # often
 _STOP_CHECK_LEVELS = 8
 
+STATS_DTYPES = (torch.float32, torch.bfloat16)
+
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_PTR, _INT, _INT, _INT, _INT, _FLOAT, _FLOAT, _INT, _INT, _FLOAT,
              _FLOAT, _PTR, _PTR, _PTR, _INT, _PTR]
@@ -50,12 +56,20 @@ SMEM_LIMIT = 232_448
 _SMEM_TAIL = 2 * 8 + 2 * 4 * 3 * 4 + 4 * 128 * 4
 
 
-def smem_bytes(C: int) -> int:
+def row_buf_bytes(C: int, elem: int = 4) -> int:
+    """Shared memory one node row of ``C`` columns takes in the kernel: a
+    float32 row (``elem`` 4) is ``16 * C`` bytes, copied whole; a bfloat16
+    row (``elem`` 2) is copied from the 16-byte boundary at or below its
+    start, ``8 * C + 8`` bytes at most, rounded up to 16."""
+    return 16 * C if elem == 4 else (8 * C + 8 + 15) // 16 * 16
+
+
+def smem_bytes(C: int, elem: int = 4) -> int:
     """Dynamic shared memory of one kernel block for rows of ``C = A + 2``
-    columns: two node rows of ``4 * C`` float32 (one per level parity), then
-    the barriers, the warps' winners and their column lists.  Raises where a
-    block cannot hold it."""
-    n = 2 * 16 * C + _SMEM_TAIL
+    columns of ``elem``-byte elements: two node row buffers (one per level
+    parity), then the barriers, the warps' winners and their column lists.
+    Raises where a block cannot hold it."""
+    n = 2 * row_buf_bytes(C, elem) + _SMEM_TAIL
     if n > SMEM_LIMIT:
         raise ValueError(f"rows of {C} columns need {n} bytes of shared "
                          f"memory per block; a block may use {SMEM_LIMIT}")
@@ -117,7 +131,7 @@ def select_plain(cfg, stats, sim_idx: int, depth_cap: int, levels: int):
     for level in range(levels):
         if level and level % _STOP_CHECK_LEVELS == 0 and bool(stop.all()):
             break
-        row = stats[ar, node]                                 # [B, 4, A+2]
+        row = stats[ar, node].to(torch.float32)               # [B, 4, A+2]
         pv = row[:, PVALID, :A]
         nn_ = row[:, EN, A]
         rot = row[:, CHILD, A].long()
@@ -143,17 +157,21 @@ def select_plain(cfg, stats, sim_idx: int, depth_cap: int, levels: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _launch():
-    """The library's launch function, built and declared once."""
-    launch = _build.load("descent").descent_launch
+def _launch(dtype: torch.dtype):
+    """The library's launch function for ``dtype`` stats, built and
+    declared once."""
+    lib = _build.load("descent")
+    launch = (lib.descent_launch if dtype == torch.float32
+              else lib.descent_bf16_launch)
     launch.argtypes, launch.restype = _ARGTYPES, ctypes.c_int
     return launch
 
 
 def _check(stats, depth_cap):
-    if stats.dtype != torch.float32 or stats.dim() != 4 or stats.shape[2] != 4:
-        raise ValueError(f"stats must be float32 [B, M, 4, A+2], got "
-                         f"{tuple(stats.shape)} {stats.dtype}")
+    if (stats.dtype not in STATS_DTYPES or stats.dim() != 4
+            or stats.shape[2] != 4):
+        raise ValueError(f"stats must be float32 or bfloat16 [B, M, 4, A+2], "
+                         f"got {tuple(stats.shape)} {stats.dtype}")
     if stats.shape[3] < 3:
         raise ValueError(f"stats need at least one action column, got "
                          f"{tuple(stats.shape)}")
@@ -167,28 +185,30 @@ def _check(stats, depth_cap):
 
 
 def select(cfg, stats, sim_idx: int, depth_cap: int, levels: int):
-    """One descent of every board of ``stats [B, M, 4, A+2]`` (float32) for
-    simulation ``sim_idx`` (forced playouts read it) with a path buffer of
-    ``depth_cap`` levels.  Returns ``(parent, action, existing, depth,
-    parent_rot, path_p, path_a, path_r)``: int64 ``[B]`` but ``depth``,
-    int32 ``[B]``, and the paths int32 ``[B, depth_cap]``; the outputs of
-    ``select_plain``, which takes ``levels`` as its loop bound.  On CUDA
-    tensors one kernel launch computes them and ``levels`` is not read."""
+    """One descent of every board of ``stats [B, M, 4, A+2]`` (float32 or
+    bfloat16) for simulation ``sim_idx`` (forced playouts read it) with a
+    path buffer of ``depth_cap`` levels.  Returns ``(parent, action,
+    existing, depth, parent_rot, path_p, path_a, path_r)``: int64 ``[B]``
+    but ``depth``, int32 ``[B]``, and the paths int32 ``[B, depth_cap]``;
+    the outputs of ``select_plain``, which takes ``levels`` as its loop
+    bound.  On CUDA tensors one kernel launch computes them and ``levels``
+    is not read."""
     _check(stats, depth_cap)
     if stats.device.type == "cpu":
         return select_plain(cfg, stats, sim_idx, depth_cap, levels)
     B, M, _, C = stats.shape
-    smem = smem_bytes(C)
+    smem = smem_bytes(C, stats.element_size())
     if stats.data_ptr() % 16:
         raise ValueError("stats must be 16-byte aligned on the card (the "
-                         "kernel copies whole node rows with TMA)")
+                         "kernel copies node rows with TMA from 16-byte "
+                         "boundaries)")
     dev = stats.device
     out64 = torch.empty((4, B), dtype=torch.int64, device=dev)
     depth = torch.empty(B, dtype=torch.int32, device=dev)
     paths = torch.empty((3, B, depth_cap), dtype=torch.int32, device=dev)
     if B:
         with torch.cuda.device(dev):
-            err = _launch()(
+            err = _launch(stats.dtype)(
                 stats.data_ptr(), B, M, C, depth_cap, float(cfg.cpuct),
                 float(cfg.fpu), int(cfg.fpu > 0),
                 int(bool(cfg.forced_playouts)),

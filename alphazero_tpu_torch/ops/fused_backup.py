@@ -22,6 +22,12 @@ update in one launch: the kernel builds the operands in registers.
 ``packed_operands`` builds them as tensors, and ``backprop_packed_plain``
 is that followed by ``fused_backup_plain``.
 
+``backprop_packed`` also takes bfloat16 stats (``MCTSConfig.stats_dtype =
+"bfloat16"``), as the JAX update does: each element's float32 sum over the
+levels, the child pointer and the expanded row are rounded to bf16 and then
+added, each add rounded to bf16, the row's after the path's.  The operand
+contract and the split stay float32, as the Pallas kernel is.
+
 Each wrapper takes its plain version only for CPU tensors; for CUDA tensors
 it launches the kernel or raises.  ``fused_backup.launches`` counts every
 kernel launch of any contract.
@@ -54,11 +60,15 @@ _ENTRY_ARGTYPES = [_PTR, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _INT, _PTR,
 
 @functools.lru_cache(maxsize=None)
 def _kernels():
-    """The library's two launch functions, built and declared once."""
+    """The library's launch functions (the operand contract, the entry on
+    float32 stats and on bfloat16 stats), built and declared once."""
     lib = _build.load("fused_backup")
-    operand, entry = lib.fused_backup_launch, lib.fused_backup_entry_launch
+    operand = lib.fused_backup_launch
+    entry = {torch.float32: lib.fused_backup_entry_launch,
+             torch.bfloat16: lib.fused_backup_entry_bf16_launch}
     operand.argtypes, operand.restype = _OPERAND_ARGTYPES, ctypes.c_int
-    entry.argtypes, entry.restype = _ENTRY_ARGTYPES, ctypes.c_int
+    for fn in entry.values():
+        fn.argtypes, fn.restype = _ENTRY_ARGTYPES, ctypes.c_int
     return operand, entry
 
 
@@ -76,9 +86,10 @@ def _launch(fn, stats, *args):
     return stats
 
 
-def _check_stats(stats):
-    if stats.dtype != torch.float32 or stats.dim() != 4 or stats.shape[2] != 4:
-        raise ValueError(f"stats must be float32 [B, M, 4, C], got "
+def _check_stats(stats, dtypes=(torch.float32,)):
+    if stats.dtype not in dtypes or stats.dim() != 4 or stats.shape[2] != 4:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise ValueError(f"stats must be {names} [B, M, 4, C], got "
                          f"{tuple(stats.shape)} {stats.dtype}")
     if stats.device.type not in ("cuda", "cpu"):
         raise ValueError(f"the backup runs on cuda or cpu tensors, not "
@@ -218,7 +229,7 @@ def _check_entry(stats, path_p, path_a, path_r, depth, value_vec, leaf_rot,
                  parent, action, fresh, slot, pvalid_new, child_term,
                  child_rot, leaf_init_v, term_vec):
     """Validate ``backprop_packed``'s arguments."""
-    _check_stats(stats)
+    _check_stats(stats, (torch.float32, torch.bfloat16))
     B, M, _, C = stats.shape
     A = C - 2
     S1 = path_p.shape[1] if path_p.dim() == 2 else -1
@@ -277,18 +288,34 @@ def packed_operands(stats, path_p, path_a, path_r, depth, value_vec, leaf_rot,
 
 def backprop_packed_plain(stats, *args):
     """``backprop_packed`` in plain PyTorch: the operands as tensors, then
-    ``fused_backup_plain``."""
+    ``fused_backup_plain``.  On bfloat16 stats, the JAX update's roundings:
+    the path's and the child's float32 sums (``fused_backup_plain`` on a
+    float32 zero tensor) rounded to bf16 and added to every element, then
+    the expanded row rounded to bf16 and added to its slot."""
     _check_entry(stats, *args)
-    return fused_backup_plain(stats, *packed_operands(stats, *args),
-                              node_col=stats.shape[3] - 2)
+    path_p, path_a, w, child_p, child_a, child_v, row, slot = \
+        packed_operands(stats, *args)
+    node_col = stats.shape[3] - 2
+    if stats.dtype == torch.float32:
+        return fused_backup_plain(stats, path_p, path_a, w, child_p, child_a,
+                                  child_v, row, slot, node_col=node_col)
+    delta = fused_backup_plain(
+        torch.zeros(stats.shape, dtype=torch.float32, device=stats.device),
+        path_p, path_a, w, child_p, child_a, child_v, torch.zeros_like(row),
+        slot, node_col=node_col)
+    stats.copy_(stats.float() + delta.to(stats.dtype).float())
+    ar, sl = torch.arange(stats.shape[0], device=stats.device), slot.long()
+    stats[ar, sl] = (stats[ar, sl].float()
+                     + row.to(stats.dtype).float()).to(stats.dtype)
+    return stats
 
 
 def backprop_packed(stats, path_p, path_a, path_r, depth, value_vec, leaf_rot,
                     parent, action, fresh, slot, pvalid_new, child_term,
                     child_rot, leaf_init_v, term_vec):
     """Whole-path backup and node expansion of one simulation on the packed
-    ``stats [B, M, 4, A+2]``, in place: the JAX ``_backprop_fused`` as one
-    kernel launch.  Returns ``stats``.
+    ``stats [B, M, 4, A+2]`` (float32 or bfloat16), in place: the JAX
+    ``_backprop_fused`` as one kernel launch.  Returns ``stats``.
 
     path_p, path_a, path_r [B, S1] int32 and depth [B] int32: level
         ``l < depth[b]`` holds edge ``(path_p[l], path_a[l])``; the edge and
@@ -320,8 +347,9 @@ def backprop_packed(stats, path_p, path_a, path_r, depth, value_vec, leaf_rot,
             term_vec))
     B, M, _, C = stats.shape
     return _launch(
-        _kernels()[1], stats, B, M, C, value_vec.shape[1], path_p.data_ptr(),
-        path_a.data_ptr(), path_r.data_ptr(), path_p.shape[1],
+        _kernels()[1][stats.dtype], stats, B, M, C, value_vec.shape[1],
+        path_p.data_ptr(), path_a.data_ptr(), path_r.data_ptr(),
+        path_p.shape[1],
         depth.data_ptr(), value_vec.data_ptr(), leaf_rot.data_ptr(),
         parent.data_ptr(), action.data_ptr(), fresh.data_ptr(),
         slot.data_ptr(), pvalid_new.data_ptr(), child_term.data_ptr(),

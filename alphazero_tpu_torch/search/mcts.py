@@ -31,8 +31,14 @@ index of the call and policy-target pruning its sims.  The JAX search may
 split a fresh search's sim loop into stages of growing capacity
 (``stage_sims``); staged and unstaged searches return equal results, so
 the port validates the schedule and runs one stage at full capacity.
-Stats are float32 always, which is what ``stats_dtype="auto"`` resolves to
-off the TPU and what JAX requires of a reused tree.
+
+Stats are float32, or bfloat16 with ``stats_dtype="bfloat16"`` under the
+JAX search's guard: a fresh tree of capacity and sims at most 256, where
+visit counts and child pointers are exact integers in bf16.  Both kernels
+take bf16 stats and round where the JAX search rounds: the root row, the
+backup's addends and adds (``ops/fused_backup.py``); everything read from
+the tree is upcast to float32 first.  ``"auto"`` resolves to float32, as
+the JAX rule does on any backend but a TPU.
 """
 
 from __future__ import annotations
@@ -59,9 +65,9 @@ _EW = 3       # edge value sum | node: value sum
 @dataclasses.dataclass(frozen=True)
 class MCTSConfig:
     """The JAX search's configuration, field for field.  ``descent_unroll``
-    and ``pallas_backup`` change how the JAX search runs, not what it
-    returns: the port's descent has no unroll and its backup is always the
-    kernel."""
+    changes how the JAX search runs, not what it returns: the port's descent
+    has no unroll.  ``pallas_backup`` raises, as in the JAX search: the
+    port's backup is always its own kernel."""
     num_sims: int = 100
     cpuct: float = 1.0
     fpu: float = 0.0                  # >0: parent-Q reduction; <=0: absolute
@@ -74,14 +80,14 @@ class MCTSConfig:
     max_depth: int = 0                # 0: no cap beyond the tree's capacity
     descent_unroll: int = 1
     pallas_backup: bool = False
-    stats_dtype: str = "auto"         # "auto" | "float32"
+    stats_dtype: str = "auto"         # "auto" | "float32" | "bfloat16"
     stage_sims: str = "auto"
 
 
 class Tree(NamedTuple):
     """One tree per board; ``M`` = capacity = num_sims + keep_cap + 1."""
     states: torch.Tensor      # [B, M, R, 7] int8, canonical
-    stats: torch.Tensor       # [B, M, 4, A+2] f32, lanes as above
+    stats: torch.Tensor       # [B, M, 4, A+2] f32 or bf16, lanes as above
     parent: torch.Tensor      # [B, M] i32, parent node id (0 for the root)
 
 
@@ -146,16 +152,41 @@ def _normalize_masked(p, valid):
     return p / p.sum(-1, keepdim=True).clamp(min=EPS)
 
 
+def stats_dtype(cfg: MCTSConfig, keep_cap: int) -> torch.dtype:
+    """The dtype of the tree stats, resolved as the JAX search resolves
+    ``cfg.stats_dtype`` for a tree of capacity ``num_sims + keep_cap + 1``
+    (``keep_cap > 0``: a carried tree): ``"auto"`` is float32, which the
+    JAX rule picks on any backend but a TPU, and ``"bfloat16"`` raises the
+    JAX search's ``ValueError`` where counts or pointers could pass 256."""
+    S = cfg.num_sims
+    M = S + keep_cap + 1
+    names = {"auto": torch.float32, "float32": torch.float32,
+             "bfloat16": torch.bfloat16}
+    if cfg.stats_dtype not in names:
+        raise ValueError(f"stats_dtype={cfg.stats_dtype!r}: one of "
+                         f"{sorted(names)}")
+    sdt = names[cfg.stats_dtype]
+    if sdt == torch.bfloat16 and (M > 256 or S > 256 or keep_cap > 0):
+        raise ValueError(
+            f"stats_dtype=bfloat16 stores visit counts and the sign-packed "
+            f"child pointers exactly only up to 256 on a FRESH tree, but "
+            f"tree capacity is {M} (num_sims={S}, keep_cap={keep_cap}); "
+            f"use float32 (reuse trees accumulate root Ns past 256, where "
+            f"bf16 +1 increments vanish)")
+    return sdt
+
+
 def _build_core(cfg: MCTSConfig, num_players: int, eval_fn: EvalFn,
                 step_fn: StepFn, valid_fn, keep_cap: int, dev: torch.device):
     """The search over a caller's tree with per-board node counts ``n0``
     (1: a fresh root-only tree).  Returns ``(init_tree, run, M)`` with
     capacity ``M = num_sims + keep_cap + 1``."""
-    if cfg.stats_dtype not in ("auto", "float32"):
-        raise ValueError(
-            f"stats_dtype={cfg.stats_dtype!r}: the port stores search stats "
-            f"in float32 ('auto' or 'float32'); a reused tree's root visit "
-            f"counts also grow past 256, where bfloat16 +1 increments vanish")
+    sdt = stats_dtype(cfg, keep_cap)
+    if cfg.pallas_backup:
+        raise NotImplementedError(
+            "pallas_backup=True: the JAX search raises here (its Pallas "
+            "kernel targets the split stats layout); the port's backup is "
+            "always ops/fused_backup.py::backprop_packed")
     S = cfg.num_sims
     M = S + keep_cap + 1
     P = num_players
@@ -166,7 +197,7 @@ def _build_core(cfg: MCTSConfig, num_players: int, eval_fn: EvalFn,
         roots = roots.to(dev)
         B, R, C = roots.shape
         A = valid_fn(roots[:1]).shape[1]
-        stats = torch.zeros((B, M, 4, A + 2), dtype=torch.float32, device=dev)
+        stats = torch.zeros((B, M, 4, A + 2), dtype=sdt, device=dev)
         stats[:, :, _PVALID, :A] = -1.0
         states = torch.zeros((B, M, R, C), dtype=torch.int8, device=dev)
         states[:, 0] = roots
@@ -201,7 +232,7 @@ def _build_core(cfg: MCTSConfig, num_players: int, eval_fn: EvalFn,
 
         # the root's prior row is rewritten on every call; a carried root
         # keeps its visit count, value sum and edge stats, a fresh one
-        # starts from the net's value
+        # starts from the net's value (each stored in the stats' dtype)
         carried = n0 > 1
         stats[:, 0, _PVALID, :A] = torch.where(root_valid, pi0, -1.0)
         stats[:, 0, _EN, A] = torch.where(carried, stats[:, 0, _EN, A], 0.0)
@@ -241,7 +272,7 @@ def _build_core(cfg: MCTSConfig, num_players: int, eval_fn: EvalFn,
 
             with record_function("mcts.backup"):
                 # leaf frame: a revisited leaf's scalars come from its row
-                leaf = stats[ar, existing, :, A:]                 # [B, 4, 2]
+                leaf = stats[ar, existing, :, A:].float()         # [B, 4, 2]
                 leaf_term = torch.where(fresh, child_term,
                                         leaf[:, _PVALID, 0] > 0)
                 leaf_rot = torch.where(fresh, child_rot,
@@ -255,9 +286,10 @@ def _build_core(cfg: MCTSConfig, num_players: int, eval_fn: EvalFn,
                                 child_term, child_rot, values[:, 0],
                                 term_vec)
 
-        counts = stats[:, 0, _EN, :A].to(torch.int32)
-        root_prior = stats[:, 0, _PVALID, :A].clamp(min=0.0)
-        qs = stats[:, 0, _EW, A] / (stats[:, 0, _EN, A] + 1.0)
+        root = stats[:, 0].float()                        # [B, 4, A+2]
+        counts = root[:, _EN, :A].to(torch.int32)
+        root_prior = root[:, _PVALID, :A].clamp(min=0.0)
+        qs = root[:, _EW, A] / (root[:, _EN, A] + 1.0)
         q = torch.cat([qs[:, None],
                        (-qs / (P - 1))[:, None].expand(B, P - 1)], 1)
         out_counts = counts.to(torch.float32)

@@ -18,6 +18,14 @@ Phases (each raises on failure):
    its latency floor, a dependent L2 load per level, probed with
    ``ops/csrc/l2_chase.cu``), the launch floor (the device time of that
    file's empty kernel) and the plain version's device and host time;
+   then both kernels' bf16 instantiations (``stats_dtype="bfloat16"``) on
+   made-up inputs (the descent's last case a chain to the stats tensor's
+   last row) and on every simulation of bf16 searches at B=1024/M=65,
+   B=256/M=129 and self-play's two PCR shapes (B=64/M=129, B=192/M=33),
+   both kernels at each shape the bf16 paths launch them at, with device
+   times at the first two (``BF16_DESCENT_SHAPES``, ``BF16_BACKUP_SHAPES``);
+   that ``stats_dtype="auto"`` gives float32 stats on the card is checked
+   on the main-path search here and on phase 8's carried trees;
 3. search: B=1024 boards, 64 sims, root noise on, with the v1 width-128
    net of ``runs/r6/best.pt``; asserts the visit counts and that the
    backup and descent kernels ran once per simulation; one profiled search
@@ -26,7 +34,10 @@ Phases (each raises on failure):
    search with the plain descent; then one profiled search with the
    backup's operands built by PyTorch ops, for the host's share;
 4. self-play: the actor at B=256, 128 sims, playout-cap randomization and
-   forced playouts, 12 moves;
+   forced playouts, 12 moves; then bf16 (``phase_bf16``): the search at
+   B=1024, S=64 and 12 moves of fresh self-play at B=256, S=128 on bf16
+   stats, one descent and one backup launch per simulation; the search
+   with f32 and bf16 stats, and with the f32 and bf16 trunk, in turns;
 5. the same small search on the CPU (plain versions) and on the card, as
    the reference check;
 6. train: ``fit`` for one epoch of r6's ``TrainConfig`` (batch 64, lr 3e-4,
@@ -112,33 +123,48 @@ def _sync():
     torch.cuda.synchronize()
 
 
+# profiled calls of ``_device_ms`` in which the profiler lost a named
+# kernel's records: (name, units, records seen), printed before the last line
+PROFILER_SHORT = []
+
+
 def _device_ms(fn, name=None, reps=5, warmup=2, per_call=1, counter=None):
     """Device time per unit of work from the profiler's kernel durations:
     each of ``reps`` profiled calls of ``fn`` does ``per_call`` units; the
     result is the median over the calls.  Without ``name`` a call's time is
     the sum of all its kernels' durations over ``per_call``.  With ``name``
     only the kernels whose name contains it count, one per unit, and a
-    call's time is their mean duration: the profiler loses a kernel's
-    record now and then (where it switches activity buffers), so up to a
-    tenth may be missing, and a call that lost more is profiled again,
-    eight times at most (a call of one launch can lose its only record
-    several times in a row, so give ``fn`` a few).  What no record is needed for is held exactly:
-    every profiled call must raise the wrapper's launch count (``counter``,
-    by default ``fused_backup``'s) by ``per_call``.  CUDA events around the
-    calls would also count the gaps in which the device waits for the host
-    to launch the next kernel."""
+    call's time is their mean duration.  The profiler loses a kernel's
+    record now and then (where it switches activity buffers, and on some
+    hosts a few of the first in a window), so with ``name`` each window
+    opens with 16 small kernels of another name, and a call whose window
+    holds fewer than nine tenths of its records is profiled again, eight
+    times at most; then the attempt that kept the most records is taken
+    if it kept a quarter of them (logged in ``PROFILER_SHORT``), else this
+    raises.  A lost record costs a sample, not the time of the ones kept.
+    What no record is needed for is held exactly: every profiled call must
+    raise the wrapper's launch count (``counter``, by default
+    ``fused_backup``'s) by ``per_call``.  CUDA events around the calls
+    would also count the gaps in which the device waits for the host to
+    launch the next kernel."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from alphazero_tpu_torch.ops import fused_backup as FB
     counter = FB.fused_backup if counter is None else counter
+    pad = torch.zeros(1, device="cuda")
     for _ in range(warmup):
         fn()
     per_unit = []
     for _ in range(reps):
+        best = []
         for _attempt in range(8):
             _sync()
             before = counter.launches
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                if name is not None:
+                    for _ in range(16):
+                        pad.add_(1.0)
                 fn()
                 _sync()
             launched = counter.launches - before
@@ -148,12 +174,20 @@ def _device_ms(fn, name=None, reps=5, warmup=2, per_call=1, counter=None):
             us = [e.time_range.elapsed_us() for e in prof.events()
                   if e.device_type == DeviceType.CUDA
                   and (name is None or name in e.name)]
-            if us and (name is None
-                       or 0.9 * per_call <= len(us) <= per_call):
+            if name is not None and len(us) > per_call:
+                raise AssertionError(f"the profiler saw {len(us)} {name!r} "
+                                     f"kernels for {per_call} units")
+            if len(us) > len(best):
+                best = us
+            if us and (name is None or len(us) >= 0.9 * per_call):
                 break
         else:
-            raise AssertionError(f"the profiler saw {len(us)} {name!r} "
-                                 f"kernels for {per_call} units")
+            if name is None or 4 * len(best) < per_call or not best:
+                raise AssertionError(f"the profiler saw {len(best)} "
+                                     f"{name!r} kernels for {per_call} "
+                                     f"units in 8 tries")
+            PROFILER_SHORT.append((name, per_call, len(best)))
+        us = best
         per_unit.append(sum(us) / (per_call if name is None else len(us)))
     return statistics.median(per_unit) / 1e3
 
@@ -233,20 +267,22 @@ def _made_up_entry_args(B, M, A, S1, P, g, dev, slot):
             torch.randn((B, P), generator=g, device=dev))
 
 
-def _main_search(device="cuda", B=1024, S=64):
-    """The main path's search: B boards, S sims, root noise on, the r6 net;
-    returns ``(env config, net, search, roots, generator)``."""
+def _main_search(device="cuda", B=1024, S=64, stats_dtype="auto",
+                 net_dtype="float32"):
+    """The main path's search: B boards, S sims, root noise on, the r6 net
+    (its trunk in ``net_dtype``), stats in ``stats_dtype``; returns ``(env
+    config, net, search, roots, generator)``."""
     import torch
     from alphazero_tpu_torch.games.splendor import adapter as A
     from alphazero_tpu_torch.games.splendor import env as E
     from alphazero_tpu_torch.search import mcts as M
     cfg = E.SplendorConfig(num_players=2)
-    net = _r6_net(cfg, device)
+    net = _r6_net(cfg, device, net_dtype)
     search = M.build_search(
         M.MCTSConfig(num_sims=S, add_noise=True, dirichlet_alpha=0.2,
-                     prior_temp=1.25), 2,
-        A.make_eval_fn(A.net_config_for(cfg)), A.make_search_step_fn(cfg),
-        A.make_valid_fn(cfg), device=device)
+                     prior_temp=1.25, stats_dtype=stats_dtype), 2,
+        A.make_eval_fn(A.net_config_for(cfg, dtype=net_dtype)),
+        A.make_search_step_fn(cfg), A.make_valid_fn(cfg), device=device)
     g = torch.Generator(device=device).manual_seed(1)
     roots = E.initial_state(cfg, B, g, device=device)
     return cfg, net, search, roots, g
@@ -367,7 +403,7 @@ def _entry_work(stats, *raw):
     idx, _, live, inst = _entry_touched(stats, *raw)
     per_board = 4 + 8 + 1 + 1 + 8 + 4 + 2 * 4 * P + 4 * A + 4
     nbytes = (B * per_board + live * 12 + inst * 16
-              + torch.unique(idx).numel() * 8)
+              + torch.unique(idx).numel() * 2 * stats.element_size())
     return nbytes, idx.numel() + B * A
 
 
@@ -465,6 +501,11 @@ def phase_kernels():
     # packed contracts (the search's): the arguments of all 64 simulations
     # of a main-path search, applied in order to the stats the last one found
     base, raws = _search_backup_args()
+    if base.dtype != torch.float32:
+        raise AssertionError(f'stats_dtype "auto" gave {base.dtype} stats '
+                             f'on cuda, not float32')
+    print('stats_dtype "auto" on cuda: float32 (the main-path search)',
+          flush=True)
     node_col = base.shape[3] - 2
     n = len(raws)
     ops = [FB.packed_operands(base, *raw) for raw in raws]
@@ -580,6 +621,8 @@ def phase_kernels():
         host_operand_ms=host_operand_ms, host_entry_ms=host_entry_ms,
         live_levels_mean=live.mean().item(), live_levels_max=int(live.max()))
     out["descent"] = _descent_kernel_phase(g)
+    out["descent_bf16"], out["fused_backup_bf16"] = _bf16_kernel_phase(
+        g, out["descent"]["l2_latency_ms"])
     return out
 
 
@@ -668,9 +711,10 @@ def _made_up_trees(g, dev):
     return cases
 
 
-def _descent_search(B, S, kind):
-    """A search of ``DESCENT_SHAPES`` on the card with the r6 net: returns
-    ``(search, net, roots, generator)``."""
+def _descent_search(B, S, kind, stats_dtype="auto"):
+    """A search of ``DESCENT_SHAPES`` (or of self-play's fast search,
+    ``kind="fast"``) on the card with the r6 net: returns ``(search, net,
+    roots, generator)``."""
     import torch
     from alphazero_tpu_torch.games.splendor import adapter as A
     from alphazero_tpu_torch.games.splendor import board_dsl as BD
@@ -686,6 +730,9 @@ def _descent_search(B, S, kind):
         kw = dict(cpuct=sp.cpuct, fpu=sp.fpu, forced_playouts=True,
                   add_noise=True, dirichlet_alpha=sp.dirichlet_alpha,
                   prior_temp=sp.prior_temp, max_depth=sp.max_depth)
+    elif kind == "fast":            # self-play's fast (PCR) search
+        sp = SP.SelfPlayConfig()
+        kw = dict(cpuct=sp.cpuct, fpu=sp.fpu, max_depth=sp.max_depth)
     g = torch.Generator(device="cuda").manual_seed(1)
     if kind == "review":
         roots = torch.as_tensor(BD.spec_to_state(REVIEW_SPEC, 2, 0),
@@ -693,13 +740,13 @@ def _descent_search(B, S, kind):
     else:
         roots = E.initial_state(cfg, B, g, device="cuda")
     search = M.build_search(
-        M.MCTSConfig(num_sims=S, **kw), 2,
+        M.MCTSConfig(num_sims=S, stats_dtype=stats_dtype, **kw), 2,
         A.make_eval_fn(A.net_config_for(cfg)), A.make_search_step_fn(cfg),
         A.make_valid_fn(cfg), device="cuda")
     return search, _r6_net(cfg, "cuda"), roots, g
 
 
-def _check_descent_search(B, S, kind, every):
+def _check_descent_search(B, S, kind, every, stats_dtype="auto"):
     """One search of ``DESCENT_SHAPES`` whose every descent runs the kernel
     and the plain version (with the search's level bound) on the same tree,
     held equal in every output.  Returns the trees of every ``every``-th
@@ -707,7 +754,7 @@ def _check_descent_search(B, S, kind, every):
     the largest difference."""
     from alphazero_tpu_torch.ops import descent as D
     from alphazero_tpu_torch.search import mcts as M
-    search, net, roots, g = _descent_search(B, S, kind)
+    search, net, roots, g = _descent_search(B, S, kind, stats_dtype)
     kept, worst, calls = [], [0.0], [0]
     real = M._select
 
@@ -796,13 +843,14 @@ def _launch_floor_ms():
     return _device_ms(calls, "noop_kernel", per_call=64, counter=_noop)
 
 
-def _descent_times(kept, l2_ms):
+def _descent_times(kept, l2_ms, reps=5, launches=64):
     """The kernel's device ms per launch on the kept trees and its
     synchronized host ms per ``select`` call (median of 3 calls of 64+
     launches each), the plain version's device ms and synchronized host ms
     per call, and the least time ``bound_ms``, the largest of three: bytes
-    (per board, per level visited, the three edge lanes, three node floats
-    and the child float read, and the outputs written once) at 3.35 TB/s,
+    (per board, per level visited, the three edge lanes, three node scalars
+    and the child pointer read, in the stats' dtype, and the outputs
+    written once) at 3.35 TB/s,
     6 float operations per edge visited at 67 TFLOP/s (those two are
     ``work_bound_ms``, the kernels line's bound), and the latency floor,
     one dependent L2 load per level of the deepest path; means over the
@@ -810,8 +858,9 @@ def _descent_times(kept, l2_ms):
     from alphazero_tpu_torch.ops import descent as D
     n = len(kept)
     # the profiler may lose a tenth of the records of one profiled call, so
-    # each call launches the kernel on the kept trees in turn 64 times or more
-    rounds = -(-64 // n)
+    # each call launches the kernel on the kept trees in turn ``launches``
+    # times or more
+    rounds = -(-launches // n)
 
     def kernel():
         for _ in range(rounds):
@@ -822,15 +871,15 @@ def _descent_times(kept, l2_ms):
         for cfg, st, i, cap, lv, _ in kept:
             D.select_plain(cfg, st, i, cap, lv)
     out = {"ms": _device_ms(kernel, "descent_kernel", per_call=rounds * n,
-                            counter=D.select),
+                            counter=D.select, reps=reps),
            "host_ms": _time_host_ms(kernel, reps=3) / (rounds * n),
-           "plain_ms": _device_ms(plain, warmup=1, per_call=n),
+           "plain_ms": _device_ms(plain, warmup=1, per_call=n, reps=reps),
            "plain_host_ms": _time_host_ms(plain, reps=3) / n}
     nbytes = ops = floor = levels = deepest = 0.0
     for _, st, _, cap, _, depth in kept:
-        B, A = st.shape[0], st.shape[3] - 2
+        B, A, e = st.shape[0], st.shape[3] - 2, st.element_size()
         lv, dp = int(depth.sum()), int(depth.max())
-        nbytes += lv * (3 * A * 4 + 16) + B * (4 * 8 + 4 + 3 * cap * 4)
+        nbytes += lv * (3 * A + 4) * e + B * (4 * 8 + 4 + 3 * cap * 4)
         ops += lv * A * 6
         floor += dp * l2_ms
         levels += lv / B
@@ -901,10 +950,18 @@ def _descent_kernel_phase(g):
                                          "work_bound_by", "latency_floor_ms")})
 
 
-def _r6_net(cfg, device):
+def _r6_net(cfg, device, dtype="float32"):
+    """r6's net, its trunk in ``dtype`` (the weights stay float32)."""
+    from alphazero_tpu_torch.games.splendor import adapter as A
+    from alphazero_tpu_torch.models import splendor_net as N
     from alphazero_tpu_torch.utils import checkpoint as C
-    return C.load_net(os.path.join(ROOT, "runs", "r6", "best.pt"), cfg,
-                      device)[0]
+    net = C.load_net(os.path.join(ROOT, "runs", "r6", "best.pt"), cfg,
+                     device)[0]
+    if dtype == "float32":
+        return net
+    other = N.build_net(A.net_config_for(cfg, dtype=dtype), device)
+    other.load_state_dict(net.state_dict())
+    return other
 
 
 def _profile(fn):
@@ -976,13 +1033,16 @@ def _plain_select(cfg, stats, sim_idx, depth_cap, levels):
     return D.select_plain(cfg, stats, sim_idx, depth_cap, levels)
 
 
-def phase_search(reps=5):
+def _run_checked_search(cfg, net, search, roots, g, S, what, reps=1):
+    """One warm-up search, then ``reps`` timed searches with the launch
+    counts set to 0 just before them; checks that every board's root visits
+    sum to ``S`` with none on an invalid action, that q is finite, that the
+    results are float32, and one backup and one descent launch per
+    simulation.  Returns the last result, each search's seconds and the
+    backup and descent launches."""
     import torch
     from alphazero_tpu_torch.games.splendor import adapter as A
     from alphazero_tpu_torch.ops import fused_backup as FB
-    from alphazero_tpu_torch.search import mcts as M
-    B, S = 1024, 64
-    cfg, net, search, roots, g = _main_search(B=B, S=S)
     search(net, roots, generator=g)                       # warm-up
     _sync()
     _zero_launches()
@@ -997,12 +1057,45 @@ def phase_search(reps=5):
     raw = res.raw_counts
     valid = A.make_valid_fn(cfg)(roots)
     if not bool((raw.sum(1) == S).all()):
-        raise AssertionError("root visit counts do not sum to num_sims")
+        raise AssertionError(f"{what}: root visit counts do not sum to "
+                             f"num_sims")
     if bool((raw * ~valid).any()):
-        raise AssertionError("visits on invalid root actions")
+        raise AssertionError(f"{what}: visits on invalid root actions")
     if not bool(torch.isfinite(res.q).all()):
-        raise AssertionError("non-finite root q")
-    _check_launches("search", reps * S, launches, descents)
+        raise AssertionError(f"{what}: non-finite root q")
+    if not res.q.dtype == res.counts.dtype == torch.float32:
+        raise AssertionError(f"{what}: results are {res.q.dtype}, "
+                             f"{res.counts.dtype}")
+    _check_launches(what, reps * S, launches, descents)
+    return res, times, launches, descents
+
+
+def _turns(variants, reps=2):
+    """Milliseconds of each variant ``name -> run`` (``run()`` does one
+    search and waits for the card), timed in turns (a, b, b, a for two
+    variants), ``reps`` calls a turn, after one warm-up call each.
+    Returns the medians and every time."""
+    order = list(variants) + list(variants)[::-1]
+    times = {k: [] for k in variants}
+    for run in variants.values():
+        run()
+    for k in order:
+        for _ in range(reps):
+            _sync()
+            t0 = time.perf_counter()
+            variants[k]()
+            _sync()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}, times
+
+
+def phase_search(reps=5):
+    from alphazero_tpu_torch.ops import fused_backup as FB
+    from alphazero_tpu_torch.search import mcts as M
+    B, S = 1024, 64
+    cfg, net, search, roots, g = _main_search(B=B, S=S)
+    _, times, launches, descents = _run_checked_search(
+        cfg, net, search, roots, g, S, "search", reps)
     rps = B * S / statistics.median(times)
     print(f"search B={B} S={S}: {rps:.1f} rollouts/s (median of {reps}, "
           f"{statistics.median(times) * 1e3:.1f} ms/search); backup launches "
@@ -1017,29 +1110,28 @@ def phase_search(reps=5):
     # the plain descent and the kernel in turns (plain, kernel, kernel,
     # plain; two searches each), then one profiled search with the plain
     # descent, for its span and kernels
-    turns, real_select = {"plain": [], "kernel": []}, M._select
-    for name in ("plain", "kernel", "kernel", "plain"):
-        M._select = _plain_select if name == "plain" else real_select
-        try:
+    real_select = M._select
+
+    def with_descent(select, launches):
+        def run():
             before = _descents()
-            for _ in range(2):
-                _sync()
-                t0 = time.perf_counter()
+            M._select = select
+            try:
                 search(net, roots, generator=g)
-                _sync()
-                turns[name].append((time.perf_counter() - t0) * 1e3)
-        finally:
-            M._select = real_select
-        if (_descents() - before) != (2 * S if name == "kernel" else 0):
-            raise AssertionError(f"{name} turn: {_descents() - before} "
-                                 f"descent launches")
+            finally:
+                M._select = real_select
+            if _descents() - before != launches:
+                raise AssertionError(f"{_descents() - before} descent "
+                                     f"launches in a search, not {launches}")
+        return run
+    medians, turns = _turns({"plain": with_descent(_plain_select, 0),
+                             "kernel": with_descent(real_select, S)})
     M._select = _plain_select
     try:
         prof_plain = _profile(lambda: search(net, roots, generator=g))
     finally:
         M._select = real_select
-    plain_ms, kernel_ms = (statistics.median(turns[k])
-                           for k in ("plain", "kernel"))
+    plain_ms, kernel_ms = medians["plain"], medians["kernel"]
     print(f"search B={B} S={S} in turns: plain descent {plain_ms:.1f} ms, "
           f"descent kernel {kernel_ms:.1f} ms per search (medians of 4; "
           f"{plain_ms / kernel_ms:.3f}x); profiled: mcts.descent host span "
@@ -1082,7 +1174,7 @@ class _MaskedVisits(logging.Handler):
             self.visits += int(record.args[0])
 
 
-def _selfplay_engine(tree_reuse, moves):
+def _selfplay_engine(tree_reuse, moves, stats_dtype="auto"):
     """The self-play actor at B=256, 128 sims, PCR 4 / 0.25 and forced
     playouts, for ``moves`` moves."""
     from alphazero_tpu_torch.games.splendor import adapter as A
@@ -1092,7 +1184,8 @@ def _selfplay_engine(tree_reuse, moves):
     sp = SP.SelfPlayConfig(batch_size=256, num_sims=128, ratio_full=4,
                            prob_full=0.25, temp_threshold=10,
                            forced_playouts=True, max_moves=moves,
-                           chunk_moves=moves, tree_reuse=tree_reuse)
+                           chunk_moves=moves, tree_reuse=tree_reuse,
+                           stats_dtype=stats_dtype)
     return cfg, SP.SelfPlayEngine(cfg, A.make_eval_fn(A.net_config_for(cfg)),
                                   sp, device="cuda")
 
@@ -1122,7 +1215,7 @@ def _check_reuse_selfplay(net, moves=4):
     return err
 
 
-def phase_selfplay(tree_reuse=False):
+def phase_selfplay(tree_reuse=False, stats_dtype="auto"):
     """The self-play actor at B=256, 128 sims, PCR 4 / 0.25 and forced
     playouts for 12 moves with the r6 net: rollouts/s, examples, launches
     (one per simulation its searches ran), masked root visits and peak
@@ -1138,7 +1231,7 @@ def phase_selfplay(tree_reuse=False):
     backup_err = _check_reuse_selfplay(net) if tree_reuse else 0.0
     sims, hits = [0], []
     with _checked_path(sims):
-        cfg, eng = _selfplay_engine(tree_reuse, moves)
+        cfg, eng = _selfplay_engine(tree_reuse, moves, stats_dtype)
     if tree_reuse:
         reroot = eng.rs_full.reroot
 
@@ -1186,7 +1279,8 @@ def phase_selfplay(tree_reuse=False):
         if len(hits) != moves or rec["hit_share"] <= 0:
             raise AssertionError(f"{len(hits)} reroots, hit share "
                                  f"{rec['hit_share']}")
-    print(f"self-play B=256 S=128 PCR{' tree reuse' if tree_reuse else ''}: "
+    print(f"self-play B=256 S=128 PCR{' tree reuse' if tree_reuse else ''}"
+          f"{' bf16 stats' if stats_dtype == 'bfloat16' else ''}: "
           f"{rec['rollouts_per_s']:.1f} rollouts/s, {n} examples in "
           f"{dt:.2f} s; backup and descent launches {launches} = "
           f"simulations {sims[0]}; "
@@ -1195,6 +1289,260 @@ def phase_selfplay(tree_reuse=False):
           + (f"; reuse hit share {rec['hit_share']:.4f}" if tree_reuse
              else ""), flush=True)
     return rec, it
+
+
+def _bf16_chain_tree(dev):
+    """bf16 stats of 63 boards of 65 nodes whose every board descends
+    through every node, each level picking column A - 1: with B * M odd
+    the tensor's last row begins on a 16-byte boundary and ends 8 bytes
+    past one, and on every even row the pick's value sum lies in those
+    last 8 bytes, which the kernel reads beside its bulk copy."""
+    import torch
+    from alphazero_tpu_torch.ops import descent as D
+    from alphazero_tpu_torch.search import mcts as M
+    B, Mx, A = 63, 65, 409
+    st = torch.zeros((B, Mx, 4, A + 2), device=dev)
+    st[:, :, D.PVALID, :A] = 0.25
+    st[:, :, D.CHILD, :A] = torch.arange(1, Mx + 1, device=dev)[None, :, None]
+    st[:, -1, D.CHILD, :A] = 0.0
+    st[:, :, D.EN, A - 1] = 1.0
+    st[:, :, D.EW, A - 1] = 5.0
+    st[:, :, D.EN, A] = 4.0
+    st[:, :, D.EW, A] = 1.0
+    return M.MCTSConfig(cpuct=1.25, fpu=0.2), st.to(torch.bfloat16), 3, Mx
+
+
+def _bf16_kernel_checks(g, dev):
+    """Both bf16 kernels against their plain versions on made-up inputs:
+    the descent on ``_made_up_trees`` in bf16 and ``_bf16_chain_tree``, the
+    backup entry on ``_made_up_entry_args`` in bf16.  Returns the largest
+    differences and raises unless both are 0."""
+    import torch
+    from alphazero_tpu_torch.ops import descent as D
+    from alphazero_tpu_torch.ops import fused_backup as FB
+    worst_d, n = 0.0, 0
+    cases = [(cfg, st.to(torch.bfloat16), sim, cap)
+             for cfg, st, sim, cap in _made_up_trees(g, dev)]
+    cases.append(_bf16_chain_tree(dev))
+    for cfg, st, sim, cap in cases:
+        got = D.select(cfg, st, sim, cap, cap)
+        want = D.select_plain(cfg, st, sim, cap, cap)
+        worst_d = max(worst_d, _outputs_diff(got, want))
+        n += 1
+    A = cases[-1][1].shape[3] - 2
+    chain_ok = bool((got[1] == A - 1).all() and (got[3] == cap).all())
+    worst_b = 0.0
+    for B, A, P, slot in ((512, 409, 2, 7), (512, 409, 3, "per_board"),
+                          (512, 409, 4, 1), (64, 2101, 2, "per_board")):
+        args = list(_made_up_entry_args(B, 40, A, 70, P, g, dev, slot))
+        args[0] = args[0].to(torch.bfloat16)
+        want = FB.backprop_packed_plain(args[0].clone(), *args[1:])
+        got = FB.backprop_packed(args[0].clone(), *args[1:])
+        if not torch.equal(got, want):
+            worst_b = max(worst_b, (got.float() - want.float()).abs().max()
+                          .item())
+    _sync()
+    # a bf16 tensor the kernels cannot take (not 16-byte aligned) raises:
+    # no fallback to the plain version
+    cfg, st, sim, cap = cases[-1]
+    shifted = torch.empty(st.numel() + 8, dtype=st.dtype, device=dev)[1:]
+    shifted = shifted[:st.numel()].view(st.shape)
+    refused = 0
+    for call in (lambda: D.select(cfg, shifted, sim, cap, cap),
+                 lambda: FB.backprop_packed(
+                     shifted, *_made_up_entry_args(
+                         st.shape[0], st.shape[1], st.shape[3] - 2, 4, 2, g,
+                         dev, 1)[1:])):
+        launched = D.select.launches + FB.fused_backup.launches
+        try:
+            call()
+        except ValueError:
+            refused += launched == D.select.launches + FB.fused_backup.launches
+    if refused != 2:
+        raise AssertionError("a misaligned bf16 tensor was not refused")
+    print(f"bf16 made-up: descent {n} cases (the last a chain to the "
+          f"tensor's last row, picks from the rows' last 8 bytes: "
+          f"{chain_ok}), max |kernel - plain| = {worst_d:.3g}; backup entry "
+          f"on 4 made-up cases, max |kernel - plain| = {worst_b:.3g}; a "
+          f"misaligned bf16 tensor refused by both wrappers", flush=True)
+    if worst_d != 0.0 or worst_b != 0.0 or not chain_ok:
+        raise AssertionError(f"bf16 made-up cases disagree: descent "
+                             f"{worst_d}, backup {worst_b}, chain {chain_ok}")
+    return worst_d, worst_b
+
+
+def _bf16_backup_replay(B, S, timed=True):
+    """Every backup of a bf16 search at ``B`` boards and ``S`` sims replayed
+    on the stats the last one found, by the kernel and the plain version,
+    held equal; then, if ``timed``, the entry's device time per launch
+    beside its bound, the plain version's and ``index_put_``'s (medians of
+    3 profiled calls)."""
+    import torch
+    from alphazero_tpu_torch.ops import fused_backup as FB
+    base, raws = _search_backup_args(B=B, S=S, stats_dtype="bfloat16")
+    if base.dtype != torch.bfloat16:
+        raise AssertionError(f"a bf16 search's stats are {base.dtype}")
+    got, want, err = base.clone(), base.clone(), 0.0
+    for raw in raws:
+        FB.backprop_packed(got, *raw)
+        FB.backprop_packed_plain(want, *raw)
+        if not torch.equal(got, want):
+            err = max(err, (got.float() - want.float()).abs().max().item())
+    if err != 0.0:
+        raise AssertionError(f"bf16 backup replay B={B} disagrees: {err}")
+    n, st = len(raws), base.clone()
+    if not timed:
+        print(f"fused_backup entry bf16 B={B} M={S + 1}: {n} sims replayed, "
+              f"max |kernel - plain| = {err:.3g} (not timed)", flush=True)
+        return dict(max_abs_err=err, sims=n)
+
+    def entry():
+        for raw in raws:
+            FB.backprop_packed(st, *raw)
+
+    def plain():
+        for raw in raws[::16]:
+            FB.backprop_packed_plain(st, *raw)
+    flat = st.view(-1)
+    flats = [_entry_touched(base, *raw)[:2] for raw in raws]
+
+    def library():
+        for idx, val in flats:
+            flat.index_put_((idx,), val.to(flat.dtype), accumulate=True)
+    work = [_entry_work(base, *raw) for raw in raws]
+    nbytes, adds = (sum(x[i] for x in work) / n for i in (0, 1))
+    bound_ms, bound_by = _bound(nbytes, adds)
+    out = dict(max_abs_err=err, sims=n, bytes=nbytes, bound_ms=bound_ms,
+               bound_by=bound_by,
+               ms=_device_ms(entry, "fused_backup_", per_call=n, reps=3),
+               plain_ms=_device_ms(plain, warmup=1, per_call=len(raws[::16]),
+                                   reps=3),
+               library_ms=_device_ms(library, per_call=n, reps=3))
+    print(f"fused_backup entry bf16 B={B} M={S + 1}: {n} sims replayed, max "
+          f"|kernel - plain| = {err:.3g}; kernel {out['ms'] * 1e3:.3f} "
+          f"us/launch (bound {bound_ms * 1e3:.4f} us, {nbytes:.0f} bytes, "
+          f"{bound_by}), plain {out['plain_ms'] * 1e3:.1f} us, index_put_ "
+          f"{out['library_ms'] * 1e3:.1f} us", flush=True)
+    del base, raws, got, want, st, flat, flats
+    torch.cuda.empty_cache()
+    return out
+
+
+# the bf16 replays, (B, S, kind, keep every n-th sim's tree, timed): the
+# main path's search and the first two of ``DESCENT_SHAPES``, timed, then
+# self-play's two PCR searches (full at B=64, fast at B=192), checked only
+BF16_DESCENT_SHAPES = ((1024, 64, "search", 8, True),
+                       (256, 128, "selfplay", 16, True),
+                       (64, 128, "selfplay", 128, False),
+                       (192, 32, "fast", 32, False))
+# the bf16 backup replays, (B, S, timed): the main path's search and
+# self-play's two PCR shapes
+BF16_BACKUP_SHAPES = ((1024, 64, True), (64, 128, True), (192, 32, False))
+
+
+def _bf16_kernel_phase(g, l2_ms):
+    """Both kernels' bf16 instantiations against their plain versions on
+    the card: made-up inputs (``_bf16_kernel_checks``), then every
+    simulation of bf16 searches at ``BF16_DESCENT_SHAPES`` and
+    ``BF16_BACKUP_SHAPES``, the timed ones with their device times beside
+    their bounds (medians of 3 profiled calls)."""
+    import torch
+    t0 = time.perf_counter()
+    err_d, err_b = _bf16_kernel_checks(g, torch.device("cuda"))
+    descent = {}
+    for B, S, kind, every, timed in BF16_DESCENT_SHAPES:
+        kept, e = _check_descent_search(B, S, kind, every, "bfloat16")
+        if kept[0][1].dtype != torch.bfloat16 or e != 0.0:
+            raise AssertionError(f"bf16 descent replay {kind} B={B}: {e}, "
+                                 f"{kept[0][1].dtype}")
+        err_d = max(err_d, e)
+        head = (f"descent bf16 {kind} B={B} M={S + 1}: {S} sims held to "
+                f"plain, max |kernel - plain| = {e:.3g}")
+        if not timed:
+            print(f"{head} (not timed)", flush=True)
+            del kept
+            continue
+        t = descent[f"B{B}_M{S + 1}"] = _descent_times(kept, l2_ms, reps=3,
+                                                       launches=128)
+        print(f"{head}; kernel {t['ms'] * 1e3:.3f} "
+              f"us/launch (bound {t['bound_ms'] * 1e3:.4f} us by "
+              f"{t['bound_by']}: {t['bytes']:.0f} bytes, "
+              f"{t['work_bound_ms'] * 1e3:.4f} us; latency floor "
+              f"{t['latency_floor_ms'] * 1e3:.4f} us; mean levels "
+              f"{t['mean_levels']:.3f}), kernel host "
+              f"{t['host_ms'] * 1e3:.1f} us per call, plain device "
+              f"{t['plain_ms'] * 1e3:.1f} us", flush=True)
+        del kept
+        torch.cuda.empty_cache()
+    backup = {f"B{B}_M{S + 1}": _bf16_backup_replay(B, S, timed)
+              for B, S, timed in BF16_BACKUP_SHAPES}
+    err_b = max([err_b] + [v["max_abs_err"] for v in backup.values()])
+    print(f"bf16 kernels: {time.perf_counter() - t0:.1f} s", flush=True)
+    return (dict(max_abs_err=err_d, shapes=descent),
+            dict(max_abs_err=err_b, shapes=backup))
+
+
+def phase_bf16():
+    """The main path on bf16 stats (``stats_dtype="bfloat16"``, the JAX
+    package's TPU default at the bench shapes) and the bf16 trunk: the
+    search at B=1024, S=64 and 12 moves of fresh self-play at B=256,
+    S=128 on bf16 stats, each with one descent and one backup launch per
+    simulation; and the search's ms with f32 and bf16 stats, and with the
+    f32 and bf16 trunk, in turns.  (Phase 2 holds the bf16 kernels to their
+    plain versions.)"""
+    import torch
+    t_phase = time.perf_counter()
+    marks = {}
+
+    def mark(name):
+        marks[name] = time.perf_counter() - t_phase - sum(marks.values())
+
+    # the main path on bf16 stats: the search, then fresh self-play
+    B, S = 1024, 64
+    cfg, net, search, roots, g = _main_search(B=B, S=S,
+                                              stats_dtype="bfloat16")
+    _, times, launches, descents = _run_checked_search(
+        cfg, net, search, roots, g, S, "bf16 search")
+    search_ms = times[0] * 1e3
+    print(f"search bf16 stats B={B} S={S}: {search_ms:.1f} ms; backup "
+          f"launches {launches}, descent launches {descents} = simulations "
+          f"{S}", flush=True)
+    mark("search")
+    selfplay, _ = phase_selfplay(stats_dtype="bfloat16")
+    mark("self-play")
+
+    # f32 vs bf16 stats, then f32 vs bf16 trunk, in turns
+    variants = {}
+    for k, sd, nd in (("f32", "float32", "float32"),
+                      ("bf16_stats", "bfloat16", "float32"),
+                      ("bf16_net", "float32", "bfloat16")):
+        _, net, search, roots, g = _main_search(B=B, S=S, stats_dtype=sd,
+                                                net_dtype=nd)
+        variants[k] = functools.partial(search, net, roots, generator=g)
+    stats_ms, stats_all = _turns({k: variants[k]
+                                  for k in ("f32", "bf16_stats")})
+    net_ms, net_all = _turns({k: variants[k] for k in ("f32", "bf16_net")})
+    print(f"search B={B} S={S} in turns: f32 stats {stats_ms['f32']:.1f} ms, "
+          f"bf16 stats {stats_ms['bf16_stats']:.1f} ms "
+          f"({stats_ms['f32'] / stats_ms['bf16_stats']:.3f}x); f32 trunk "
+          f"{net_ms['f32']:.1f} ms, bf16 trunk {net_ms['bf16_net']:.1f} ms "
+          f"({net_ms['f32'] / net_ms['bf16_net']:.3f}x) (medians of 4)",
+          flush=True)
+    del variants
+    torch.cuda.empty_cache()
+    mark("turns")
+    seconds = time.perf_counter() - t_phase
+    print(f"bf16 phase {seconds:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in marks.items())
+          + f" s); backup and descent launches on its bf16 paths: "
+          f"{launches + selfplay['launches']} = simulations "
+          f"{S + selfplay['simulations']}", flush=True)
+    return dict(search_ms=search_ms,
+                launches=launches + selfplay["launches"],
+                descents=descents + selfplay["descents"], selfplay=selfplay,
+                turns_stats_ms=stats_ms, turns_net_ms=net_ms,
+                turns_stats_all=stats_all, turns_net_all=net_all,
+                seconds=seconds, seconds_by_step=marks)
 
 
 def _r6_train_state(net_cfg, device):
@@ -1617,6 +1965,7 @@ def phase_reuse():
     cpu_check = {}
 
     def on_reroot(move, tree, actions, nxt):
+        cpu_check.setdefault("dtypes", set()).add(tree.stats.dtype)
         if move != 1:
             return
         t0 = time.perf_counter()
@@ -1648,6 +1997,9 @@ def phase_reuse():
                              f"differ across boards")
     if not cpu_check.get("equal"):
         raise AssertionError("reroot on the card differs from the CPU's")
+    if cpu_check["dtypes"] != {torch.float32}:
+        raise AssertionError(f'stats_dtype "auto" gave {cpu_check["dtypes"]} '
+                             f'carried stats on cuda, not float32')
     carried = _report_descents(descents_checked, "the reusing search")
     if carried < moves - 1:
         raise AssertionError(f"{carried} checked descents of the reusing "
@@ -1657,7 +2009,8 @@ def phase_reuse():
           f"per-board slot tensors: max |kernel - plain| = {worst[0]:.3g} "
           f"over {checked[0]} recorded launches ({differing[0]} with slots "
           f"that differ across boards); move 2's reroot card == CPU "
-          f"({cpu_check['seconds']:.2f} s)", flush=True)
+          f"({cpu_check['seconds']:.2f} s); stats_dtype \"auto\": float32 "
+          f"carried trees", flush=True)
 
     # timed pass, the same computation without the checks; after each run
     # a fresh search of the same roots is timed beside it
@@ -2355,6 +2708,7 @@ def main(argv=None) -> int:
     t_kernels = time.perf_counter() - t0
     search = phase_search()
     selfplay, examples = phase_selfplay()
+    bf16 = phase_bf16()
     reuse = phase_reuse()
     reference = phase_reference()
     train = phase_train(examples)
@@ -2366,6 +2720,8 @@ def main(argv=None) -> int:
     tooling = phase_tooling(examples)
     total_s = time.perf_counter() - t0
     print(f"kernel phase {t_kernels:.0f} s of {total_s:.0f} s", flush=True)
+    print(f"profiled calls that kept under 0.9 of a kernel's records in 8 "
+          f"tries (name, units, records kept): {PROFILER_SHORT}", flush=True)
 
     kb = kernels["fused_backup"]
     line = {"kernels": [{
@@ -2396,12 +2752,32 @@ def main(argv=None) -> int:
         "latency_floor_ms": kd["latency_floor_ms"]})
     if [p["descents"] for p in paths] != [p["launches"] for p in paths]:
         raise AssertionError("descent and backup launches differ on a path")
+    kbb, kbd = kernels["fused_backup_bf16"], kernels["descent_bf16"]
+    bb, bd = kbb["shapes"]["B1024_M65"], kbd["shapes"]["B1024_M65"]
+    line["kernels"].append({
+        "name": "fused_backup_bf16", "route": "cuda",
+        "source": "alphazero_tpu_torch/ops/csrc/fused_backup.cu",
+        "replaces": "alphazero_tpu/ops/fused_backup.py:118",
+        "launches": bf16["launches"],
+        "max_abs_err": kbb["max_abs_err"], "ms": bb["ms"],
+        "plain_ms": bb["plain_ms"], "bound_ms": bb["bound_ms"],
+        "bound_by": bb["bound_by"], "library_ms": bb["library_ms"]})
+    line["kernels"].append({
+        "name": "descent_bf16", "route": "cuda",
+        "source": "alphazero_tpu_torch/ops/csrc/descent.cu",
+        "replaces": "alphazero_tpu/search/mcts.py:293",
+        "launches": bf16["descents"],
+        "max_abs_err": kbd["max_abs_err"], "ms": bd["ms"],
+        "plain_ms": bd["plain_ms"], "bound_ms": bd["work_bound_ms"],
+        "bound_by": bd["work_bound_by"], "library_ms": None,
+        "latency_floor_ms": bd["latency_floor_ms"]})
     record = {"card": smi, "build_s": build_s, "seconds": total_s,
               "kernels": kernels,
-              "search": search, "selfplay": selfplay, "reuse": reuse,
+              "search": search, "selfplay": selfplay, "bf16": bf16,
+              "reuse": reuse,
               "reference": reference, "train": train, "coach": coach,
               "pit": pit, "export": export, "distributed": distributed,
-              "tooling": tooling,
+              "tooling": tooling, "profiler_short": PROFILER_SHORT,
               "torch": torch.__version__, "cuda": torch.version.cuda}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

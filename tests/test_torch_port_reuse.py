@@ -267,5 +267,5 @@ def test_bfloat16_stats_rejected():
     with pytest.raises(ValueError, match="bfloat16"):
         _port_rs(dict(num_sims=16, stats_dtype="bfloat16"), keep_cap=16)
     with pytest.raises(ValueError, match="bfloat16"):
-        M.build_search(M.MCTSConfig(stats_dtype="bfloat16"), 2,
+        M.build_search(M.MCTSConfig(num_sims=400, stats_dtype="bfloat16"), 2,
                        A.make_uniform_eval_fn(cfg), None, None, device="cpu")

@@ -212,5 +212,5 @@ def test_stage_schedules_are_validated():
         M.build_search(M.MCTSConfig(num_sims=64, stage_sims="16,16"), 2,
                        None, None, None, device="cpu")
     with pytest.raises(ValueError, match="float32"):
-        M.build_search(M.MCTSConfig(stats_dtype="bfloat16"), 2, None, None,
-                       None, device="cpu")
+        M.build_search(M.MCTSConfig(num_sims=400, stats_dtype="bfloat16"), 2,
+                       None, None, None, device="cpu")
