@@ -34,7 +34,12 @@ Phases (each raises on failure):
    search with the plain descent; then one profiled search with the
    backup's operands built by PyTorch ops, for the host's share;
 4. self-play: the actor at B=256, 128 sims, playout-cap randomization and
-   forced playouts, 12 moves; then bf16 (``phase_bf16``): the search at
+   forced playouts, 12 moves; then the benchmark entry points
+   (``phase_bench``): ``cli.bench``'s search row in a child at B=1024,
+   S=64, 5 reps (its one JSON line checked, the card not degraded by its
+   pins), and ``cli.bench``'s self-play row and ``cli.bench_selfplay``'s
+   row in this process at phase 4's shape and cut; then bf16
+   (``phase_bf16``): the search at
    B=1024, S=64 and 12 moves of fresh self-play at B=256, S=128 on bf16
    stats, one descent and one backup launch per simulation; the search
    with f32 and bf16 stats, and with the f32 and bf16 trunk, in turns;
@@ -90,9 +95,11 @@ Phases (each raises on failure):
    ``review_position`` of a board-DSL position at 1,600 sims (B=1, M=1601)
    inside ``utils.profiling.trace`` with its ``top_ops``; the entry's
    device time at B=1/M=17 and B=1/M=1601 beside its bound;
-phases 3, 4, 7, 8, 9, 11 and 12 assert one backup and one descent launch
-per simulation their searches ran;
-then one JSON line with every kernel's launches, error and times, and the
+phases 3, 4 (with the bench rows run in this process), 7, 8, 9, 11 and 12
+assert one backup and one descent launch per simulation their searches
+ran;
+then a line with the bench rows, one JSON line with every kernel's
+launches, error and times, and the
 last line ``{"ok": true, "device": {...}}``.  It exits non-zero, printing
 no result, when there is no CUDA device.  With ``--out``, the full
 measurements are also written to that JSON file.
@@ -2646,6 +2653,100 @@ def phase_distributed():
     return rec
 
 
+# the keys of the benchmark entry points' JSON lines
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "value_best", "reps",
+              "batch", "sims", "degraded", "stage_schedule",
+              "pin_matmul_tflops", "pin_hbm_gbps", "pins_method", "sync",
+              "selfplay"}
+SELFPLAY_ROW_KEYS = {"value", "unit", "games_per_s", "examples_per_s",
+                     "batch", "sims", "pcr"}
+BENCH_SELFPLAY_KEYS = {"metric", "value", "unit", "vs_baseline",
+                       "games_per_s", "moves_per_s", "examples_per_s",
+                       "batch", "num_sims", "num_players", "tree_reuse",
+                       "model_flops_per_s"}
+
+
+def _check_row(what, row, keys, want):
+    """``row``'s keys are ``keys``, its fields in ``want`` equal, and its
+    rates finite and positive."""
+    if set(row) != keys:
+        raise AssertionError(f"{what}: keys {sorted(row)}, not "
+                             f"{sorted(keys)}")
+    got = {k: row[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: {got}, not {want}")
+    for k in ("value", "games_per_s", "value_best"):
+        if k in row and not 0.0 < row[k] < float("inf"):
+            raise AssertionError(f"{what}: {k} = {row[k]}")
+
+
+def phase_bench(moves=12):
+    """The benchmark entry points.  ``cli.bench``'s search row in a child
+    (``python -m alphazero_tpu_torch.cli.bench`` with
+    ``BENCH_SKIP_SELFPLAY=1``) at B=1024, S=64, 5 reps: exit 0, one JSON
+    line with its keys, not degraded.  Then in this process ``bench.
+    selfplay_row`` and ``bench_selfplay.row`` (one timed run) at B=256,
+    S=128, PCR, cut to ``moves`` moves as phases 4 and 8 are, each with one
+    backup and one descent launch per simulation its searches ran."""
+    from alphazero_tpu_torch.cli import bench as BENCH
+    from alphazero_tpu_torch.cli import bench_selfplay as BSP
+    from alphazero_tpu_torch.ops import fused_backup as FB
+    t0 = time.perf_counter()
+    env = dict(os.environ, BENCH_BATCH="1024", BENCH_SIMS="64",
+               BENCH_REPS="5", BENCH_SKIP_SELFPLAY="1")
+    child = subprocess.run(
+        [sys.executable, "-m", "alphazero_tpu_torch.cli.bench"], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=600)
+    lines = child.stdout.strip().splitlines()
+    if child.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"cli.bench exited {child.returncode} with "
+                             f"{len(lines)} lines: {child.stdout[-2000:]}"
+                             f"{child.stderr[-4000:]}")
+    search = json.loads(lines[0])
+    _check_row("cli.bench", search, BENCH_KEYS, {
+        "metric": "mcts_rollouts_per_s_per_chip", "batch": 1024, "sims": 64,
+        "reps": 5, "stage_schedule": [16, 16, 32], "selfplay": None,
+        "sync": "cuda-synchronize"})
+    if search["degraded"]:
+        raise AssertionError(
+            f"cli.bench: the card is degraded: pins "
+            f"{search['pin_matmul_tflops']} TFLOP/s, "
+            f"{search['pin_hbm_gbps']} GB/s against "
+            f"{BENCH.HEALTHY_TFLOPS_MIN}, {BENCH.HEALTHY_GBPS_MIN}")
+    print(f"cli.bench B=1024 S=64 (a child): {search['value']} rollouts/s "
+          f"(best {search['value_best']}), pins "
+          f"{search['pin_matmul_tflops']} TFLOP/s, {search['pin_hbm_gbps']} "
+          f"GB/s, degraded {search['degraded']}; {time.perf_counter() - t0:.1f}"
+          f" s", flush=True)
+    cut = dict(max_moves=moves, chunk_moves=moves)
+    rec = {"search": search, "launches": 0, "descents": 0}
+    rows = (("bench.selfplay_row", SELFPLAY_ROW_KEYS,
+             {"batch": 256, "sims": 128, "pcr": True},
+             lambda: BENCH.selfplay_row("cuda", cut)),
+            ("bench_selfplay.row", BENCH_SELFPLAY_KEYS,
+             {"batch": 256, "num_sims": 128, "tree_reuse": False},
+             lambda: BSP.row("cuda", reps=1, sp_cfg_overrides=cut)))
+    for name, keys, want, run in rows:
+        sims = [0]
+        with _checked_path(sims):
+            _zero_launches()
+            row = run()
+            _sync()
+            launches, descents = FB.fused_backup.launches, _descents()
+        _check_launches(name, sims[0], launches, descents)
+        _check_row(name, row, keys, want)
+        rec[name] = dict(row, launches=launches, simulations=sims[0])
+        rec["launches"] += launches
+        rec["descents"] += descents
+        print(f"{name} B=256 S=128 PCR, {moves} moves: {row['value']} "
+              f"rollouts/s, {row['games_per_s']} games/s; backup and "
+              f"descent launches {launches} = simulations {sims[0]}",
+              flush=True)
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"bench phase {rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
 def phase_reference():
     """The same small searches on the CPU (plain versions) and the card."""
     import torch
@@ -2708,6 +2809,7 @@ def main(argv=None) -> int:
     t_kernels = time.perf_counter() - t0
     search = phase_search()
     selfplay, examples = phase_selfplay()
+    bench = phase_bench()
     bf16 = phase_bf16()
     reuse = phase_reuse()
     reference = phase_reference()
@@ -2729,9 +2831,9 @@ def main(argv=None) -> int:
         "source": "alphazero_tpu_torch/ops/csrc/fused_backup.cu",
         "replaces": "alphazero_tpu/ops/fused_backup.py:118",
         "launches": (search["launches"] + selfplay["launches"]
-                     + coach["launches"] + reuse["launches"]
-                     + pit["launches"] + distributed["launches"]
-                     + tooling["launches"]),
+                     + bench["launches"] + coach["launches"]
+                     + reuse["launches"] + pit["launches"]
+                     + distributed["launches"] + tooling["launches"]),
         "max_abs_err": max(kb["max_abs_err"], coach["backup_max_abs_err"],
                            reuse["max_abs_err"], pit["backup_max_abs_err"],
                            distributed["backup_max_abs_err"],
@@ -2740,7 +2842,8 @@ def main(argv=None) -> int:
         "plain_ms": kb["plain_ms"], "bound_ms": kb["bound_ms"],
         "bound_by": kb["bound_by"], "library_ms": kb["library_ms"]}]}
     kd = kernels["descent"]
-    paths = (search, selfplay, coach, reuse, pit, distributed, tooling)
+    paths = (search, selfplay, bench, coach, reuse, pit, distributed,
+             tooling)
     line["kernels"].append({
         "name": "descent", "route": "cuda",
         "source": "alphazero_tpu_torch/ops/csrc/descent.cu",
@@ -2773,7 +2876,8 @@ def main(argv=None) -> int:
         "latency_floor_ms": bd["latency_floor_ms"]})
     record = {"card": smi, "build_s": build_s, "seconds": total_s,
               "kernels": kernels,
-              "search": search, "selfplay": selfplay, "bf16": bf16,
+              "search": search, "selfplay": selfplay, "bench": bench,
+              "bf16": bf16,
               "reuse": reuse,
               "reference": reference, "train": train, "coach": coach,
               "pit": pit, "export": export, "distributed": distributed,
@@ -2783,6 +2887,10 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
+    print("bench rows: " + json.dumps(
+        {"cli.bench": bench["search"],
+         "bench.selfplay_row": bench["bench.selfplay_row"],
+         "bench_selfplay.row": bench["bench_selfplay.row"]}))
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

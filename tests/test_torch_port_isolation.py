@@ -47,6 +47,8 @@ MODULES = [
     "alphazero_tpu_torch.cli.train_resilient",
     "alphazero_tpu_torch.cli.export",
     "alphazero_tpu_torch.cli.bench_scaling",
+    "alphazero_tpu_torch.cli.bench",
+    "alphazero_tpu_torch.cli.bench_selfplay",
     "alphazero_tpu_torch.compat",
     "alphazero_tpu_torch.compat.torch_import",
     "alphazero_tpu_torch.compat.onnx_export",
