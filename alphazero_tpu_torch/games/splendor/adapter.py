@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from ...models import splendor_net as N
+from ...ops import env_step as ES
 from . import env as E
 
 
@@ -55,15 +56,11 @@ def make_search_step_fn(cfg: E.SplendorConfig):
     """In-tree transition on a batch: deterministic step (chance collapsed)
     from the canonical frame, re-canonicalize for the next seat, then the
     terminal vector and validity.  The 4th output is each edge's seat
-    advance: 1, or 0 on a pending noble-select ply that keeps the turn."""
+    advance: 1, or 0 on a pending noble-select ply that keeps the turn.
+    One launch of the ``ops/env_step.py`` kernel on the card, its plain
+    version on the CPU."""
     def step_fn(states, actions):
-        zeros = torch.zeros((states.shape[0], 2), dtype=torch.float32,
-                            device=states.device)
-        s2, nxt = E.step(cfg, states, actions, 0, zeros, True)
-        # without the noble ply every edge advances exactly one seat
-        s2 = E.swap_players(cfg, s2, nxt if cfg.enable_noble_select else 1)
-        return (s2, E.check_end_game(cfg, s2), E.valid_moves(cfg, s2, 0),
-                nxt)
+        return ES.search_step(cfg, states, actions)
     return step_fn
 
 

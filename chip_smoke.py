@@ -25,14 +25,25 @@ Phases (each raises on failure):
    both kernels at each shape the bf16 paths launch them at, with device
    times at the first two (``BF16_DESCENT_SHAPES``, ``BF16_BACKUP_SHAPES``);
    that ``stats_dtype="auto"`` gives float32 stats on the card is checked
-   on the main-path search here and on phase 8's carried trees;
+   on the main-path search here and on phase 8's carried trees; the
+   env-step kernel byte for byte against ``search_step_plain`` in all four
+   outputs, on playout states (past round 127) x all 409 actions at every
+   config of ``ENV_STEP_CONFIGS`` (2-4 players, noble select, reserve off,
+   giveback off, token limit 8) and on every 8th simulation's transition
+   of a main-path search, its device time at B=1024, 256, 64 and 1 beside
+   its bound and the launch floor, its wrapper's host time and the plain
+   version's device and host time;
 3. search: B=1024 boards, 64 sims, root noise on, with the v1 width-128
    net of ``runs/r6/best.pt``; asserts the visit counts and that the
-   backup and descent kernels ran once per simulation; one profiled search
-   (spans, kernels per simulation); the plain descent (``select_plain``,
-   installed by this script) and the kernel in turns, and one profiled
-   search with the plain descent; then one profiled search with the
-   backup's operands built by PyTorch ops, for the host's share;
+   backup, descent and env-step kernels ran once per simulation; one
+   profiled search (spans, kernels per simulation); the plain descent
+   (``select_plain``, installed by this script) and the kernel in turns,
+   and one profiled search with the plain descent; the plain step
+   (``search_step_plain``, installed by this script) and the kernel in
+   turns, each search with the same roots, net and noise and equal visit
+   counts, and one profiled search with the plain step; then one profiled
+   search with the backup's operands built by PyTorch ops, for the host's
+   share;
 4. self-play: the actor at B=256, 128 sims, playout-cap randomization and
    forced playouts, 12 moves; then the benchmark entry points
    (``phase_bench``): ``cli.bench``'s search row in a child at B=1024,
@@ -96,8 +107,8 @@ Phases (each raises on failure):
    inside ``utils.profiling.trace`` with its ``top_ops``; the entry's
    device time at B=1/M=17 and B=1/M=1601 beside its bound;
 phases 3, 4 (with the bench rows run in this process), 7, 8, 9, 11 and 12
-assert one backup and one descent launch per simulation their searches
-ran;
+assert one backup, one descent and one env-step launch per simulation
+their searches ran;
 then a line with the bench rows, one JSON line with every kernel's
 launches, error and times, and the
 last line ``{"ok": true, "device": {...}}``.  It exits non-zero, printing
@@ -628,6 +639,9 @@ def phase_kernels():
         host_operand_ms=host_operand_ms, host_entry_ms=host_entry_ms,
         live_levels_mean=live.mean().item(), live_levels_max=int(live.max()))
     out["descent"] = _descent_kernel_phase(g)
+    out["env_step"] = _env_step_kernel_phase(
+        torch.Generator(device=dev).manual_seed(12),
+        out["descent"]["launch_floor_ms"])
     out["descent_bf16"], out["fused_backup_bf16"] = _bf16_kernel_phase(
         g, out["descent"]["l2_latency_ms"])
     return out
@@ -957,6 +971,198 @@ def _descent_kernel_phase(g):
                                          "work_bound_by", "latency_floor_ms")})
 
 
+# the in-tree transition's checks: the CPU test's configs
+# (tests/test_torch_port_env_step.py), the playout plies whose states are
+# kept (past round 127 from ply 128 on), and the timed batch sizes
+ENV_STEP_CONFIGS = (
+    dict(num_players=2), dict(num_players=3), dict(num_players=4),
+    dict(num_players=2, enable_noble_select=True),
+    dict(num_players=4, enable_noble_select=True, token_limit=8),
+    dict(num_players=3, enable_reserve=False),
+    dict(num_players=2, enable_giveback=False))
+ENV_STEP_KEEP = (3, 40, 90, 135, 180, 230)
+ENV_STEP_SHAPES = (1024, 256, 64, 1)
+
+
+def _env_step_playouts(num_players, g, boards=64, per_ply=2):
+    """States of playouts on the card (the port's env, its default rules at
+    ``num_players``, chance on, a random legal action per board that buys
+    when a coin says so), each in the mover's canonical frame: ``per_ply``
+    boards at each ply of ``ENV_STEP_KEEP``."""
+    import torch
+    from alphazero_tpu_torch.games.splendor import env as E
+    cfg = E.SplendorConfig(num_players=num_players)
+    s = E.initial_state(cfg, boards, g, device="cuda")
+    buy = torch.zeros(409, dtype=torch.bool, device="cuda")
+    buy[:12] = buy[27:30] = True
+    kept = []
+    for t in range(max(ENV_STEP_KEEP) + 1):
+        valid = E.valid_moves(cfg, s, 0)
+        coin = torch.rand((boards, 1), generator=g, device="cuda") < 0.6
+        score = torch.rand((boards, 409), generator=g, device="cuda")
+        a = torch.where(valid, score + (buy & coin), -1.0).argmax(1)
+        u = torch.rand((boards, 2), generator=g, device="cuda")
+        s, nxt = E.step(cfg, s, a, 0, u, False)
+        s = E.swap_players(cfg, s, nxt)
+        if t in ENV_STEP_KEEP:
+            kept.append(s[:per_ply])
+    return torch.cat(kept)
+
+
+def _pending_nobles(cfg, state):
+    """``state`` with the pending-choice flags of its first two nobles set,
+    as two nobles earned at once leave it (the CPU test's made-up state)."""
+    import torch
+    s = state.clone()
+    rn = cfg.row_nobles
+    s[rn:rn + cfg.num_nobles] = 0
+    s[rn:rn + 2, :5] = torch.tensor([[3, 3, 3, 0, 0], [0, 0, 4, 4, 0]],
+                                    dtype=torch.int8)
+    s[rn:rn + 2, 5] = 1
+    s[rn:rn + 2, 6] = 3
+    return s
+
+
+def _step_diff(got, want):
+    """The largest |kernel - plain| over the transition's four outputs; the
+    terminal vectors are compared bit for bit (differing bits of equal
+    values count as inf)."""
+    import torch
+    worst = 0.0
+    for a, b in zip(got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return float("inf")
+        if a.dtype == torch.float32:
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                worst = max(worst, (a - b).abs().max().item() or float("inf"))
+        elif not torch.equal(a, b):
+            worst = max(worst, (a.long() - b.long()).abs().max().item())
+    return worst
+
+
+def _env_step_search_inputs(every=8):
+    """The transition's inputs in every ``every``-th simulation of one
+    main-path search (B=1024, S=64, r6), recorded by the search's step
+    function as the search runs."""
+    from alphazero_tpu_torch.games.splendor import adapter as A
+    from alphazero_tpu_torch.ops import env_step as ES
+    make, kept, calls = A.make_search_step_fn, [], [0]
+
+    def recording(cfg):
+        def step_fn(states, actions):
+            if calls[0] % every == 0:
+                kept.append((states.clone(), actions.clone()))
+            calls[0] += 1
+            return ES.search_step(cfg, states, actions)
+        return step_fn
+    A.make_search_step_fn = recording
+    try:
+        cfg, net, search, roots, g = _main_search()
+    finally:
+        A.make_search_step_fn = make
+    search(net, roots, generator=g)
+    _sync()
+    if calls[0] != 64:
+        raise AssertionError(f"{calls[0]} transitions in a search of 64 sims")
+    return cfg, kept
+
+
+def _env_step_times(cfg, ins, reps=5, launches=64):
+    """The kernel's device ms per launch on the inputs ``ins`` (median of
+    ``reps`` profiled calls of 64+ launches) and its wrapper's synchronized
+    host ms per call, the plain version's device and host ms per call, and
+    the least time: the bytes one launch must move (states and actions
+    read, the four outputs written, the packed tables read) at 3.35 TB/s.
+    The operations are integer compares and adds, for which the table of
+    peaks has no rate, so they give no bound."""
+    from alphazero_tpu_torch.ops import env_step as ES
+    n = len(ins)
+    rounds = -(-launches // n)
+
+    def kernel():
+        for _ in range(rounds):
+            for s, a in ins:
+                ES.search_step(cfg, s, a)
+
+    def plain():
+        for s, a in ins:
+            ES.search_step_plain(cfg, s, a)
+    B, P = ins[0][0].shape[0], cfg.num_players
+    nbytes = B * (2 * cfg.rows * 7 + 8 + 4 * P + 409 + 8) + 2 * 409 * 4
+    return {"ms": _device_ms(kernel, "env_step_kernel", per_call=rounds * n,
+                             counter=ES.search_step, reps=reps),
+            "host_ms": _time_host_ms(kernel, reps=3) / (rounds * n),
+            "plain_ms": _device_ms(plain, warmup=1, per_call=n, reps=reps),
+            "plain_host_ms": _time_host_ms(plain, reps=3) / n,
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+
+
+def _env_step_kernel_phase(g, floor_ms):
+    """The env-step kernel against ``search_step_plain`` on the card, byte
+    for byte: playout states x all 409 actions on every config of
+    ``ENV_STEP_CONFIGS`` (a made-up pending noble choice added under noble
+    select), then every 8th simulation's transition of the main path's
+    search; its device time at ``ENV_STEP_SHAPES`` (boards of that search)
+    beside its bound and the launch floor ``floor_ms``, and the plain
+    version's device and host times."""
+    import torch
+    from alphazero_tpu_torch.games.splendor import env as E
+    from alphazero_tpu_torch.ops import env_step as ES
+    t0 = time.perf_counter()
+    states = {p: _env_step_playouts(p, g) for p in (2, 3, 4)}
+    worst, boards = 0.0, 0
+    for kw in ENV_STEP_CONFIGS:
+        cfg = E.SplendorConfig(**kw)
+        st = states[cfg.num_players]
+        if cfg.enable_noble_select:
+            st = torch.cat([st, _pending_nobles(cfg, st[4])[None]])
+        rounds = st[:, 0, 6].int() & 0xFF
+        if not bool((rounds > 127).any()):
+            raise AssertionError(f"env_step {kw}: no state past round 127")
+        n = st.shape[0]
+        inputs = st.repeat_interleave(409, 0)
+        actions = torch.arange(409, device="cuda").repeat(n)
+        e = _step_diff(ES.search_step(cfg, inputs, actions),
+                       ES.search_step_plain(cfg, inputs, actions))
+        _sync()
+        boards += inputs.shape[0]
+        worst = max(worst, e)
+        print(f"env_step {kw}: {n} playout states x 409 actions = "
+              f"{inputs.shape[0]} boards (rounds up to {int(rounds.max())}, "
+              f"{int((rounds > 127).sum())} states past 127): max |kernel - "
+              f"plain| = {e:.3g} over the four outputs", flush=True)
+    if worst != 0.0:
+        raise AssertionError(f"env_step kernel disagrees: {worst}")
+    del states
+    cfg, kept = _env_step_search_inputs()
+    replay = max(_step_diff(ES.search_step(cfg, s, a),
+                            ES.search_step_plain(cfg, s, a))
+                 for s, a in kept)
+    print(f"env_step replay of the search B=1024 S=64: {len(kept)} "
+          f"transitions (every 8th sim) held to plain, max |kernel - plain| "
+          f"= {replay:.3g}", flush=True)
+    if replay != 0.0:
+        raise AssertionError(f"env_step replay disagrees: {replay}")
+    shapes = {}
+    for B in ENV_STEP_SHAPES:
+        ins = [(s[:B].contiguous(), a[:B].contiguous()) for s, a in kept]
+        t = shapes[f"B{B}"] = _env_step_times(cfg, ins)
+        print(f"env_step B={B}: kernel {t['ms'] * 1e3:.3f} us/launch (bound "
+              f"{t['bound_ms'] * 1e3:.4f} us by bytes: {t['bytes']} bytes; "
+              f"launch floor {floor_ms * 1e3:.3f} us), kernel host "
+              f"{t['host_ms'] * 1e3:.1f} us per search_step call, plain "
+              f"device {t['plain_ms'] * 1e3:.1f} us, host "
+              f"{t['plain_host_ms'] * 1e3:.1f} us per call", flush=True)
+    main = shapes["B1024"]
+    seconds = time.perf_counter() - t0
+    print(f"env_step phase {seconds:.1f} s", flush=True)
+    return dict(max_abs_err=max(worst, replay), boards_checked=boards,
+                replayed=len(kept), launch_floor_ms=floor_ms, shapes=shapes,
+                seconds=seconds, **{k: main[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by")})
+
+
 def _r6_net(cfg, device, dtype="float32"):
     """r6's net, its trunk in ``dtype`` (the weights stay float32)."""
     from alphazero_tpu_torch.games.splendor import adapter as A
@@ -1015,10 +1221,12 @@ def _profile(fn):
 
 
 def _zero_launches():
-    """Set both kernels' launch counts to 0."""
+    """Set the search kernels' launch counts to 0."""
     from alphazero_tpu_torch.ops import descent as D
+    from alphazero_tpu_torch.ops import env_step as ES
     from alphazero_tpu_torch.ops import fused_backup as FB
     FB.fused_backup.launches = D.select.launches = 0
+    ES.search_step.launches = 0
 
 
 def _descents():
@@ -1026,11 +1234,24 @@ def _descents():
     return D.select.launches
 
 
-def _check_launches(what, sims, backups, descents):
-    """One backup and one descent launch per simulation ``what`` ran."""
-    if backups != sims or descents != sims or sims == 0:
-        raise AssertionError(f"{what}: {backups} backup and {descents} "
-                             f"descent launches for {sims} simulations")
+def _steps():
+    from alphazero_tpu_torch.ops import env_step as ES
+    return ES.search_step.launches
+
+
+def _counts():
+    """The backup, descent and env-step launch counts."""
+    from alphazero_tpu_torch.ops import fused_backup as FB
+    return FB.fused_backup.launches, _descents(), _steps()
+
+
+def _check_launches(what, sims, backups, descents, steps):
+    """One backup, one descent and one env-step launch per simulation
+    ``what`` ran."""
+    if backups != sims or descents != sims or steps != sims or sims == 0:
+        raise AssertionError(f"{what}: {backups} backup, {descents} descent "
+                             f"and {steps} env-step launches for {sims} "
+                             f"simulations")
 
 
 def _plain_select(cfg, stats, sim_idx, depth_cap, levels):
@@ -1046,10 +1267,9 @@ def _run_checked_search(cfg, net, search, roots, g, S, what, reps=1):
     sum to ``S`` with none on an invalid action, that q is finite, that the
     results are float32, and one backup and one descent launch per
     simulation.  Returns the last result, each search's seconds and the
-    backup and descent launches."""
+    backup, descent and env-step launches."""
     import torch
     from alphazero_tpu_torch.games.splendor import adapter as A
-    from alphazero_tpu_torch.ops import fused_backup as FB
     search(net, roots, generator=g)                       # warm-up
     _sync()
     _zero_launches()
@@ -1060,7 +1280,7 @@ def _run_checked_search(cfg, net, search, roots, g, S, what, reps=1):
         res = search(net, roots, generator=g)
         _sync()
         times.append(time.perf_counter() - t0)
-    launches, descents = FB.fused_backup.launches, _descents()
+    launches, descents, steps = _counts()
     raw = res.raw_counts
     valid = A.make_valid_fn(cfg)(roots)
     if not bool((raw.sum(1) == S).all()):
@@ -1073,8 +1293,8 @@ def _run_checked_search(cfg, net, search, roots, g, S, what, reps=1):
     if not res.q.dtype == res.counts.dtype == torch.float32:
         raise AssertionError(f"{what}: results are {res.q.dtype}, "
                              f"{res.counts.dtype}")
-    _check_launches(what, reps * S, launches, descents)
-    return res, times, launches, descents
+    _check_launches(what, reps * S, launches, descents, steps)
+    return res, times, launches, descents, steps
 
 
 def _turns(variants, reps=2):
@@ -1101,12 +1321,13 @@ def phase_search(reps=5):
     from alphazero_tpu_torch.search import mcts as M
     B, S = 1024, 64
     cfg, net, search, roots, g = _main_search(B=B, S=S)
-    _, times, launches, descents = _run_checked_search(
+    _, times, launches, descents, steps = _run_checked_search(
         cfg, net, search, roots, g, S, "search", reps)
     rps = B * S / statistics.median(times)
     print(f"search B={B} S={S}: {rps:.1f} rollouts/s (median of {reps}, "
           f"{statistics.median(times) * 1e3:.1f} ms/search); backup launches "
-          f"{launches}, descent launches {descents}", flush=True)
+          f"{launches}, descent launches {descents}, env-step launches "
+          f"{steps}", flush=True)
     prof = _profile(lambda: search(net, roots, generator=g))
     spans = ", ".join(f"{k} {v:.1f}" for k, v in
                       sorted(prof["spans_host_ms"].items()))
@@ -1148,6 +1369,7 @@ def phase_search(reps=5):
           f"{prof['kernel_launches'] / S:.2f} kernels per simulation, idle "
           f"share {prof_plain['device_idle_share']} / "
           f"{prof['device_idle_share']}", flush=True)
+    step_rec = _search_step_turns(net, search, roots, g, S, prof)
     # One profiled search with the backup's operands built by PyTorch ops,
     # as before the kernel built them, for the span's host time.
     M.backprop_packed = _operand_backprop
@@ -1162,10 +1384,70 @@ def phase_search(reps=5):
           f"search, {prof_ops['kernel_launches']} / "
           f"{prof['kernel_launches']} kernels", flush=True)
     return {"rollouts_per_s": rps, "search_ms": statistics.median(times) * 1e3,
-            "launches": launches, "descents": descents, "reps": reps,
+            "launches": launches, "descents": descents, "steps": steps,
+            "reps": reps, "env_step": step_rec,
             "batch": B, "sims": S, "times_s": times, "profile": prof,
             "operand_building": {"profile": prof_ops},
             "descent_turns_ms": turns, "plain_descent_profile": prof_plain}
+
+
+def _plain_step(cfg, states, actions):
+    """The search's transition as it ran before the kernel:
+    ``search_step_plain`` on the card (installed as ``env_step.search_step``
+    by this script only)."""
+    from alphazero_tpu_torch.ops import env_step as ES
+    return ES.search_step_plain(cfg, states, actions)
+
+
+def _search_step_turns(net, search, roots, g, S, prof):
+    """The main path's search with the plain step and with the kernel in
+    turns (plain, kernel, kernel, plain; two searches each), each search
+    with the same roots, net and root noise (a generator seeded anew):
+    their visit counts must be equal; then one profiled search with the
+    plain step, beside ``prof``, the kernel's."""
+    import torch
+    from alphazero_tpu_torch.ops import env_step as ES
+    real_step, counts = ES.search_step, []
+
+    def with_step(step, launches):
+        def run():
+            before = _steps()
+            ES.search_step = step
+            try:
+                res = search(net, roots, generator=torch.Generator(
+                    device="cuda").manual_seed(5))
+            finally:
+                ES.search_step = real_step
+            if _steps() - before != launches:
+                raise AssertionError(f"{_steps() - before} env-step "
+                                     f"launches in a search, not {launches}")
+            counts.append(res.raw_counts)
+        return run
+    medians, turns = _turns({"plain": with_step(_plain_step, 0),
+                             "kernel": with_step(real_step, S)})
+    if not all(torch.equal(c, counts[0]) for c in counts):
+        raise AssertionError("the searches with the plain step and with the "
+                             "kernel gave different visit counts")
+    ES.search_step = _plain_step
+    try:
+        prof_plain = _profile(lambda: search(net, roots, generator=g))
+    finally:
+        ES.search_step = real_step
+    plain_ms, kernel_ms = medians["plain"], medians["kernel"]
+    print(f"search B={roots.shape[0]} S={S} in turns: plain step "
+          f"{plain_ms:.1f} ms, env_step kernel {kernel_ms:.1f} ms per search "
+          f"(medians of 4; {plain_ms / kernel_ms:.3f}x), visit counts equal "
+          f"over {len(counts)} searches; profiled: mcts.env_step host span "
+          f"{prof_plain['spans_host_ms']['mcts.env_step']:.1f} / "
+          f"{prof['spans_host_ms']['mcts.env_step']:.1f} ms, wall "
+          f"{prof_plain['wall_ms']:.1f} / {prof['wall_ms']:.1f} ms, "
+          f"{prof_plain['kernel_launches'] / S:.2f} / "
+          f"{prof['kernel_launches'] / S:.2f} kernels per simulation, device "
+          f"busy {prof_plain['device_busy_ms']} / {prof['device_busy_ms']} "
+          f"ms, idle share {prof_plain['device_idle_share']} / "
+          f"{prof['device_idle_share']}", flush=True)
+    return {"turns_ms": turns, "plain_ms": plain_ms, "kernel_ms": kernel_ms,
+            "searches_equal": len(counts), "plain_step_profile": prof_plain}
 
 
 class _MaskedVisits(logging.Handler):
@@ -1203,15 +1485,14 @@ def _check_reuse_selfplay(net, moves=4):
     from the second move on) and held exactly to the plain version; one
     launch per simulation.  Returns the largest difference."""
     import torch
-    from alphazero_tpu_torch.ops import fused_backup as FB
     samples, sims = {}, [0]
     with _checked_path(sims, samples) as calls:
         _, eng = _selfplay_engine(True, moves)
         _zero_launches()
         eng.run_games(net, torch.Generator(device="cuda").manual_seed(2))
         _sync()
-        launches, descents = FB.fused_backup.launches, _descents()
-    _check_launches("reuse self-play", sims[0], launches, descents)
+        launches, descents, steps = _counts()
+    _check_launches("reuse self-play", sims[0], launches, descents, steps)
     err, differing = _check_recorded(samples, calls, "reuse self-play")
     if differing == 0:
         raise AssertionError("no recorded reuse self-play backup had slots "
@@ -1231,7 +1512,6 @@ def phase_selfplay(tree_reuse=False, stats_dtype="auto"):
     that kept more than the root."""
     import torch
     from alphazero_tpu_torch.games.splendor import env as E
-    from alphazero_tpu_torch.ops import fused_backup as FB
     from alphazero_tpu_torch.train import selfplay as SP
     moves = 12                       # no 2-player game ends within 12 moves
     net = _r6_net(E.SplendorConfig(num_players=2), "cuda")
@@ -1258,11 +1538,12 @@ def phase_selfplay(tree_reuse=False, stats_dtype="auto"):
                                   .manual_seed(2))
         _sync()
         dt = time.perf_counter() - t0
-        launches, descents = FB.fused_backup.launches, _descents()
+        launches, descents, steps = _counts()
         peak = torch.cuda.max_memory_allocated()
     finally:
         SP.log.removeHandler(masked)
-    _check_launches(f"self-play, {moves} moves", sims[0], launches, descents)
+    _check_launches(f"self-play, {moves} moves", sims[0], launches, descents,
+                    steps)
     if masked.visits:
         raise AssertionError(f"{masked.visits} root visits on invalid "
                              f"actions were masked")
@@ -1277,7 +1558,7 @@ def phase_selfplay(tree_reuse=False, stats_dtype="auto"):
         raise AssertionError("Iteration shapes")
     rec = {"rollouts_per_s": stats["rollouts"] / dt, "seconds": dt,
            "examples": n, "rollouts": stats["rollouts"], "launches": launches,
-           "descents": descents,
+           "descents": descents, "steps": steps,
            "simulations": sims[0], "masked_visits": masked.visits,
            "peak_bytes": peak, "backup_max_abs_err": backup_err}
     if tree_reuse:
@@ -1289,7 +1570,7 @@ def phase_selfplay(tree_reuse=False, stats_dtype="auto"):
     print(f"self-play B=256 S=128 PCR{' tree reuse' if tree_reuse else ''}"
           f"{' bf16 stats' if stats_dtype == 'bfloat16' else ''}: "
           f"{rec['rollouts_per_s']:.1f} rollouts/s, {n} examples in "
-          f"{dt:.2f} s; backup and descent launches {launches} = "
+          f"{dt:.2f} s; backup, descent and env-step launches {launches} = "
           f"simulations {sims[0]}; "
           f"masked root visits {masked.visits}; peak memory "
           f"{peak / 2**30:.3f} GiB"
@@ -1508,11 +1789,12 @@ def phase_bf16():
     B, S = 1024, 64
     cfg, net, search, roots, g = _main_search(B=B, S=S,
                                               stats_dtype="bfloat16")
-    _, times, launches, descents = _run_checked_search(
+    _, times, launches, descents, steps = _run_checked_search(
         cfg, net, search, roots, g, S, "bf16 search")
     search_ms = times[0] * 1e3
     print(f"search bf16 stats B={B} S={S}: {search_ms:.1f} ms; backup "
-          f"launches {launches}, descent launches {descents} = simulations "
+          f"launches {launches}, descent and env-step launches {descents} = "
+          f"simulations "
           f"{S}", flush=True)
     mark("search")
     selfplay, _ = phase_selfplay(stats_dtype="bfloat16")
@@ -1541,12 +1823,13 @@ def phase_bf16():
     seconds = time.perf_counter() - t_phase
     print(f"bf16 phase {seconds:.1f} s ("
           + ", ".join(f"{k} {v:.1f}" for k, v in marks.items())
-          + f" s); backup and descent launches on its bf16 paths: "
+          + f" s); backup, descent and env-step launches on its bf16 paths: "
           f"{launches + selfplay['launches']} = simulations "
           f"{S + selfplay['simulations']}", flush=True)
     return dict(search_ms=search_ms,
                 launches=launches + selfplay["launches"],
-                descents=descents + selfplay["descents"], selfplay=selfplay,
+                descents=descents + selfplay["descents"],
+                steps=steps + selfplay["steps"], selfplay=selfplay,
                 turns_stats_ms=stats_ms, turns_net_ms=net_ms,
                 turns_stats_all=stats_all, turns_net_all=net_all,
                 seconds=seconds, seconds_by_step=marks)
@@ -1812,7 +2095,6 @@ def phase_coach(keep_dir):
     import numpy as np
     import torch
     from alphazero_tpu_torch.models import splendor_net as N
-    from alphazero_tpu_torch.ops import fused_backup as FB
     from alphazero_tpu_torch.train.coach import Coach, CoachConfig
     from alphazero_tpu_torch.utils import checkpoint as C
     with tempfile.TemporaryDirectory() as tmp:
@@ -1842,8 +2124,8 @@ def phase_coach(keep_dir):
             coach.learn(on_iteration=lambda it, sp, m, g, acc: seen.update(
                 sp=sp, metrics=m, gate=g, accept=acc))
             _sync()
-            launches, descents = FB.fused_backup.launches, _descents()
-        _check_launches("coach", sims[0], launches, descents)
+            launches, descents, steps = _counts()
+        _check_launches("coach", sims[0], launches, descents, steps)
         # the kernel at the coach's own shapes, against its plain version
         backup_err, _ = _check_recorded(samples, calls, "the coach's searches")
         del samples
@@ -1874,7 +2156,8 @@ def phase_coach(keep_dir):
            "rollouts_per_s": sp["rollouts_per_s"], "gate": [nw, ow, dr],
            "accepted": seen["accept"], "train_loss": seen["metrics"]["loss"],
            "simulations": sims[0], "launches": launches,
-           "descents": descents, "backup_max_abs_err": backup_err,
+           "descents": descents, "steps": steps,
+           "backup_max_abs_err": backup_err,
            "backup_shapes": {f"B{b}_M{m}_S1{s}": n + 1
                              for (b, m, s), n in sorted(
                                  kv for kv in calls.items()
@@ -1885,8 +2168,9 @@ def phase_coach(keep_dir):
           f"rollouts/s), train {stage['train_iteration']:.2f} s (loss "
           f"{seen['metrics']['loss']:.4f}), gate {stage['gate']:.2f} s "
           f"(new-old-draws {nw}-{ow}-{dr}, "
-          f"{'accepted' if seen['accept'] else 'rejected'}); backup and "
-          f"descent launches {launches} = simulations {sims[0]}; {name} on "
+          f"{'accepted' if seen['accept'] else 'rejected'}); backup, "
+          f"descent and env-step launches {launches} = simulations "
+          f"{sims[0]}; {name} on "
           f"the CPU: forward "
           f"|card - cpu| {max(errs):.3g}", flush=True)
     return rec
@@ -1992,9 +2276,10 @@ def phase_reuse():
     finally:
         M._select = real_select
     _sync()
-    checked_launches, checked_descents = FB.fused_backup.launches, _descents()
-    _check_launches("reusing search", moves * S, checked_launches,
-                    checked_descents)
+    # and one more transition per move: the next state the reroot keeps
+    backups, descents, steps = _counts()
+    _check_launches("reusing search", moves * S, backups, descents,
+                    steps - moves)
     if calls[0] != moves * S:
         raise AssertionError(f"{calls[0]} recorded backups for {moves * S} "
                              f"simulations")
@@ -2042,9 +2327,10 @@ def phase_reuse():
     kept2, run_s = _reuse_moves(rs, net, roots, moves,
                                 on_reroot=timed_reroot)
     _sync()
-    launches, descents = FB.fused_backup.launches, _descents()
+    launches, descents, steps = _counts()
     peak = torch.cuda.max_memory_allocated()
-    _check_launches("reuse timed pass", 2 * moves * S, launches, descents)
+    _check_launches("reuse timed pass", 2 * moves * S, launches, descents,
+                    steps - moves)
     if not torch.equal(kept, kept2):
         raise AssertionError(f"timed pass: n_kept {kept2.tolist()} vs "
                              f"{kept.tolist()}")
@@ -2071,7 +2357,7 @@ def phase_reuse():
     ratio = statistics.median(a / b for a, b in zip(run_s[1:], fresh_s[1:]))
     print(f"reuse search: {carried_ms / S:.2f} ms/sim on carried trees vs "
           f"{fresh_ms / S:.2f} fresh on the same roots (medians of moves "
-          f"2-{moves}; median ratio {ratio:.3f}); backup and descent "
+          f"2-{moves}; median ratio {ratio:.3f}); backup, descent and env-step "
           f"launches {launches} = simulations of both; peak memory "
           f"{peak / 2**30:.3f} GiB",
           flush=True)
@@ -2086,6 +2372,8 @@ def phase_reuse():
             "fresh_ms_per_sim": fresh_ms / S, "carried_over_fresh": ratio,
             "launches": launches + selfplay["launches"] + cli["launches"],
             "descents": descents + selfplay["descents"] + cli["descents"],
+            "steps": steps - moves + selfplay["steps"] + cli["steps"],
+            "move_steps": moves,
             "max_abs_err": max(worst[0], selfplay["backup_max_abs_err"],
                                cli["backup_max_abs_err"]),
             "reroot_cpu_equal": True,
@@ -2112,7 +2400,6 @@ def _reuse_cli():
     against their simulations and a spread of them is held to the plain
     version at its shapes."""
     from alphazero_tpu_torch.cli import main as CLI
-    from alphazero_tpu_torch.ops import fused_backup as FB
     from alphazero_tpu_torch.train import coach as CO
     samples, sims, iter_lines = {}, [0], _IterLines()
     level = CO.log.level
@@ -2128,20 +2415,22 @@ def _reuse_cli():
                       "-p", "1", "-C", tmp, "--tree-reuse"])
             _sync()
             cli_s = time.perf_counter() - t0
-            launches, descents = FB.fused_backup.launches, _descents()
+            launches, descents, steps = _counts()
     finally:
         CO.log.removeHandler(iter_lines)
         CO.log.setLevel(level)
     lines = iter_lines.lines
     if not any("ACCEPTED" in ln or "REJECTED" in ln for ln in lines):
         raise AssertionError(f"cli.main --tree-reuse logged {lines}")
-    _check_launches("cli.main --tree-reuse", sims[0], launches, descents)
+    _check_launches("cli.main --tree-reuse", sims[0], launches, descents,
+                    steps)
     err, _ = _check_recorded(samples, calls, "cli.main --tree-reuse")
-    print(f"cli.main --tree-reuse on the card: {cli_s:.1f} s; backup and "
-          f"descent launches {launches} = simulations {sims[0]}; "
+    print(f"cli.main --tree-reuse on the card: {cli_s:.1f} s; backup, "
+          f"descent and env-step launches {launches} = simulations "
+          f"{sims[0]}; "
           + "; ".join(ln[len("Iter 1: "):][:80] for ln in lines), flush=True)
     return {"seconds": cli_s, "log": lines, "launches": launches,
-            "descents": descents, "simulations": sims[0],
+            "descents": descents, "steps": steps, "simulations": sims[0],
             "backup_max_abs_err": err}
 
 
@@ -2151,7 +2440,6 @@ def phase_pit(coach_temp):
     Glicko-2 book."""
     import shutil
     from alphazero_tpu_torch.cli import pit as PIT
-    from alphazero_tpu_torch.ops import fused_backup as FB
     r6 = os.path.join(ROOT, "runs", "r6", "best.pt")
     samples, sims = {}, [0]
     with tempfile.TemporaryDirectory() as tmp, \
@@ -2170,20 +2458,21 @@ def phase_pit(coach_temp):
         with open(os.path.join(tmp, "ratings.json")) as f:
             saved = json.load(f)
         _sync()
-        launches, descents = FB.fused_backup.launches, _descents()
+        launches, descents, steps = _counts()
     if out["games"] != 4 or out["wins"] + out["losses"] + out["draws"] != 4:
         raise AssertionError(f"pit record {out}")
     ratings = {k: vars(v) for k, v in book.ratings.items()}
     if sorted(saved) != ["coach/best.pt", "r6/best.pt"] or saved != ratings:
         raise AssertionError(f"tournament book {saved}")
-    _check_launches("pit", sims[0], launches, descents)
+    _check_launches("pit", sims[0], launches, descents, steps)
     err, _ = _check_recorded(samples, calls, "the pit's searches")
     print(f"pit: r6 vs greedy {out['wins']}-{out['losses']} "
           f"({out['draws']} draws) in {pair_s:.1f} s; tournament in "
-          f"{tour_s:.1f} s; backup and descent launches {launches} = "
+          f"{tour_s:.1f} s; backup, descent and env-step launches {launches} = "
           f"simulations {sims[0]}", flush=True)
     return {"pair": out, "pair_seconds": pair_s, "tournament_seconds": tour_s,
             "ratings": ratings, "launches": launches, "descents": descents,
+            "steps": steps,
             "simulations": sims[0], "backup_max_abs_err": err}
 
 
@@ -2311,7 +2600,7 @@ def phase_tooling(examples, review_sims=1600):
             if (1, 17, 16) not in samples:
                 raise AssertionError("no backup recorded at B=1, M=17")
             _sync()
-            pit_launches, pit_descents = FB.fused_backup.launches, _descents()
+            pit_launches, pit_descents, pit_steps = _counts()
             m17 = _entry_at(samples[1, 17, 16])
             FB.fused_backup.launches = pit_launches
             # offline training on phase 4's examples, warm-started from r6
@@ -2340,12 +2629,14 @@ def phase_tooling(examples, review_sims=1600):
                 review_s = time.perf_counter() - t0
             review_launches = FB.fused_backup.launches - pit_launches
             review_descents = _descents() - pit_descents
-            launches, descents = FB.fused_backup.launches, _descents()
+            review_steps = _steps() - pit_steps
+            launches, descents, steps = _counts()
             t0 = time.perf_counter()
             ops = PROF.top_ops(trace_dir, None)
             top_ops_s = time.perf_counter() - t0
-    _check_launches("tooling", sims[0], launches, descents)
-    _check_launches("review", review_sims, review_launches, review_descents)
+    _check_launches("tooling", sims[0], launches, descents, steps)
+    _check_launches("review", review_sims, review_launches, review_descents,
+                    review_steps)
     entry_rows = [r for r in ops if "fused_backup_entry_kernel" in r[3]]
     if len(entry_rows) != 1 or not 0.9 * review_sims <= entry_rows[0][1]:
         raise AssertionError(f"review trace rows {entry_rows}")
@@ -2367,7 +2658,8 @@ def phase_tooling(examples, review_sims=1600):
                      "q": q.tolist(), "top_ops": ops[:8],
                      "entry_row": entry_rows[0],
                      "device_ops": sum(r[1] for r in ops)}
-    rec.update(launches=launches, descents=descents, simulations=sims[0],
+    rec.update(launches=launches, descents=descents, steps=steps,
+               simulations=sims[0],
                backup_max_abs_err=err, entry_by_shape=shapes,
                seconds=time.perf_counter() - t_phase)
     r = rec["review"]
@@ -2390,8 +2682,8 @@ def phase_tooling(examples, review_sims=1600):
                       f"{v['bound_by']})" for k, v in shapes.items())
           + f"; at B1_M17 index_put_ {m17['library_ms'] * 1e3:.1f}, plain "
           f"host {m17['plain_host_ms'] * 1e3:.1f}", flush=True)
-    print(f"tooling: backup and descent launches {launches} = simulations "
-          f"{sims[0]}; phase {rec['seconds']:.1f} s", flush=True)
+    print(f"tooling: backup, descent and env-step launches {launches} = "
+          f"simulations {sims[0]}; phase {rec['seconds']:.1f} s", flush=True)
     return rec
 
 
@@ -2484,7 +2776,6 @@ def _cli_iteration(argv):
     counted against their simulations and a spread of them held to the
     plain version; each coach stage timed.  Returns its record."""
     from alphazero_tpu_torch.cli import main as CLI
-    from alphazero_tpu_torch.ops import fused_backup as FB
     from alphazero_tpu_torch.train import coach as CO
     samples, sims, stage = {}, [0], {}
     saved = {n: getattr(CO.Coach, n)
@@ -2509,16 +2800,16 @@ def _cli_iteration(argv):
             CLI.main(argv + ["-C", tmp])
             _sync()
             seconds = time.perf_counter() - t0
-            launches, descents = FB.fused_backup.launches, _descents()
+            launches, descents, steps = _counts()
             with open(os.path.join(tmp, "metrics.jsonl")) as f:
                 record = json.loads(f.readline())
     finally:
         for n, f in saved.items():
             setattr(CO.Coach, n, f)
-    _check_launches(" ".join(argv), sims[0], launches, descents)
+    _check_launches(" ".join(argv), sims[0], launches, descents, steps)
     err, _ = _check_recorded(samples, calls, "the CLI iteration")
     return {"seconds": seconds, "stage_seconds": stage, "launches": launches,
-            "descents": descents, "simulations": sims[0],
+            "descents": descents, "steps": steps, "simulations": sims[0],
             "backup_max_abs_err": err,
             "record": record}
 
@@ -2531,7 +2822,6 @@ def _distributed_child(out_path):
     from alphazero_tpu_torch.cli import bench_scaling as BS
     from alphazero_tpu_torch.games.splendor import adapter as A
     from alphazero_tpu_torch.games.splendor import env as E
-    from alphazero_tpu_torch.ops import fused_backup as FB
     from alphazero_tpu_torch.parallel import distributed as D
     from alphazero_tpu_torch.parallel import dryrun as DR
     from alphazero_tpu_torch.parallel import mesh as MP
@@ -2571,10 +2861,12 @@ def _distributed_child(out_path):
     with _checked_path(sims, samples) as calls:
         rec["dryrun"] = DR.dryrun("cuda")
         _sync()
-    dry_launches, dry_descents = FB.fused_backup.launches, _descents()
-    _check_launches("dry run", sims[0], dry_launches, dry_descents)
+    dry_launches, dry_descents, dry_steps = _counts()
+    _check_launches("dry run", sims[0], dry_launches, dry_descents,
+                    dry_steps)
     err, _ = _check_recorded(samples, calls, "the dry run's self-play")
     rec["dryrun"].update(launches=dry_launches, descents=dry_descents,
+                         steps=dry_steps,
                          backup_max_abs_err=err)
     rec["bench_scaling"] = BS.main(["--batch-per-device", "4096",
                                     "--steps", "50"])
@@ -2625,6 +2917,7 @@ def phase_distributed():
                                   + plain["launches"]),
            "descents": (c["descents"] + child["dryrun"]["descents"]
                         + plain["descents"]),
+           "steps": (c["steps"] + child["dryrun"]["steps"] + plain["steps"]),
            "backup_max_abs_err": max(c["backup_max_abs_err"],
                                      child["dryrun"]["backup_max_abs_err"],
                                      plain["backup_max_abs_err"]),
@@ -2633,8 +2926,8 @@ def phase_distributed():
     print(f"distributed: cli.main --distributed at W=1 ({child['backend']}) "
           f"in a child: {c['seconds']:.1f} s (self-play "
           f"{st['self_play_iteration']:.2f} s, train "
-          f"{st['train_iteration']:.2f} s, gate {st['gate']:.2f} s); backup "
-          f"and descent launches {c['launches']} = simulations "
+          f"{st['train_iteration']:.2f} s, gate {st['gate']:.2f} s); backup, "
+          f"descent and env-step launches {c['launches']} = simulations "
           f"{c['simulations']}; equal "
           f"to the same iteration without --distributed ({plain['seconds']:.1f}"
           f" s; examples {plain_rec['selfplay_examples']}, gate "
@@ -2690,7 +2983,6 @@ def phase_bench(moves=12):
     backup and one descent launch per simulation its searches ran."""
     from alphazero_tpu_torch.cli import bench as BENCH
     from alphazero_tpu_torch.cli import bench_selfplay as BSP
-    from alphazero_tpu_torch.ops import fused_backup as FB
     t0 = time.perf_counter()
     env = dict(os.environ, BENCH_BATCH="1024", BENCH_SIMS="64",
                BENCH_REPS="5", BENCH_SKIP_SELFPLAY="1")
@@ -2719,7 +3011,7 @@ def phase_bench(moves=12):
           f"GB/s, degraded {search['degraded']}; {time.perf_counter() - t0:.1f}"
           f" s", flush=True)
     cut = dict(max_moves=moves, chunk_moves=moves)
-    rec = {"search": search, "launches": 0, "descents": 0}
+    rec = {"search": search, "launches": 0, "descents": 0, "steps": 0}
     rows = (("bench.selfplay_row", SELFPLAY_ROW_KEYS,
              {"batch": 256, "sims": 128, "pcr": True},
              lambda: BENCH.selfplay_row("cuda", cut)),
@@ -2732,15 +3024,16 @@ def phase_bench(moves=12):
             _zero_launches()
             row = run()
             _sync()
-            launches, descents = FB.fused_backup.launches, _descents()
-        _check_launches(name, sims[0], launches, descents)
+            launches, descents, steps = _counts()
+        _check_launches(name, sims[0], launches, descents, steps)
         _check_row(name, row, keys, want)
         rec[name] = dict(row, launches=launches, simulations=sims[0])
         rec["launches"] += launches
         rec["descents"] += descents
+        rec["steps"] += steps
         print(f"{name} B=256 S=128 PCR, {moves} moves: {row['value']} "
-              f"rollouts/s, {row['games_per_s']} games/s; backup and "
-              f"descent launches {launches} = simulations {sims[0]}",
+              f"rollouts/s, {row['games_per_s']} games/s; backup, descent "
+              f"and env-step launches {launches} = simulations {sims[0]}",
               flush=True)
     rec["seconds"] = time.perf_counter() - t0
     print(f"bench phase {rec['seconds']:.1f} s", flush=True)
@@ -2855,6 +3148,19 @@ def main(argv=None) -> int:
         "latency_floor_ms": kd["latency_floor_ms"]})
     if [p["descents"] for p in paths] != [p["launches"] for p in paths]:
         raise AssertionError("descent and backup launches differ on a path")
+    if [p["descents"] for p in paths] != [p["steps"] for p in paths]:
+        raise AssertionError("descent and env-step launches differ on a path")
+    ke = kernels["env_step"]
+    line["kernels"].append({
+        "name": "env_step", "route": "cuda",
+        "source": "alphazero_tpu_torch/ops/csrc/env_step.cu",
+        "replaces": "alphazero_tpu/games/splendor/adapter.py:53",
+        "launches": (sum(p["steps"] for p in paths) + reuse["move_steps"]
+                     + bf16["steps"]),
+        "max_abs_err": ke["max_abs_err"], "ms": ke["ms"],
+        "plain_ms": ke["plain_ms"], "bound_ms": ke["bound_ms"],
+        "bound_by": ke["bound_by"], "library_ms": None,
+        "launch_floor_ms": ke["launch_floor_ms"]})
     kbb, kbd = kernels["fused_backup_bf16"], kernels["descent_bf16"]
     bb, bd = kbb["shapes"]["B1024_M65"], kbd["shapes"]["B1024_M65"]
     line["kernels"].append({

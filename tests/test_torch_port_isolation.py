@@ -24,6 +24,7 @@ MODULES = [
     "alphazero_tpu_torch.models.splendor_net",
     "alphazero_tpu_torch.ops._build",
     "alphazero_tpu_torch.ops.descent",
+    "alphazero_tpu_torch.ops.env_step",
     "alphazero_tpu_torch.ops.fused_backup",
     "alphazero_tpu_torch.search.mcts",
     "alphazero_tpu_torch.train.losses",
