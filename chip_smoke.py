@@ -1009,17 +1009,20 @@ def _env_step_playouts(num_players, g, boards=64, per_ply=2):
     return torch.cat(kept)
 
 
-def _pending_nobles(cfg, state):
-    """``state`` with the pending-choice flags of its first two nobles set,
+def _pending_nobles(cfg, state, flags=(0, 1)):
+    """``state`` with made-up nobles (two for the default ``flags``, else
+    three) and the pending-choice flags of ``flags`` set; the default is
     as two nobles earned at once leave it (the CPU test's made-up state)."""
     import torch
     s = state.clone()
     rn = cfg.row_nobles
     s[rn:rn + cfg.num_nobles] = 0
-    s[rn:rn + 2, :5] = torch.tensor([[3, 3, 3, 0, 0], [0, 0, 4, 4, 0]],
-                                    dtype=torch.int8)
-    s[rn:rn + 2, 5] = 1
-    s[rn:rn + 2, 6] = 3
+    n = 2 if flags == (0, 1) else 3
+    s[rn:rn + n, :5] = torch.tensor([[3, 3, 3, 0, 0], [0, 0, 4, 4, 0],
+                                     [0, 3, 3, 3, 0]][:n], dtype=torch.int8)
+    s[rn:rn + n, 6] = 3
+    for i in flags:
+        s[rn + i, 5] = 1
     return s
 
 
@@ -1038,6 +1041,24 @@ def _step_diff(got, want):
         elif not torch.equal(a, b):
             worst = max(worst, (a.long() - b.long()).abs().max().item())
     return worst
+
+
+def _env_step_players_inputs(states, num_players, g, B=1024, n=8):
+    """``n`` transitions of ``B`` boards at ``num_players`` players (default
+    rules): boards drawn from the playout ``states``, each with a random
+    legal action, as a search's would be."""
+    import torch
+    from alphazero_tpu_torch.games.splendor import env as E
+    cfg = E.SplendorConfig(num_players=num_players)
+    ins = []
+    for _ in range(n):
+        pick = torch.randint(0, states.shape[0], (B,), generator=g,
+                             device="cuda")
+        s = states[pick].contiguous()
+        score = torch.rand((B, 409), generator=g, device="cuda")
+        a = torch.where(E.valid_moves(cfg, s, 0), score, -1.0).argmax(1)
+        ins.append((s, a))
+    return cfg, ins
 
 
 def _env_step_search_inputs(every=8):
@@ -1072,7 +1093,8 @@ def _env_step_times(cfg, ins, reps=5, launches=64):
     ``reps`` profiled calls of 64+ launches) and its wrapper's synchronized
     host ms per call, the plain version's device and host ms per call, and
     the least time: the bytes one launch must move (states and actions
-    read, the four outputs written, the packed tables read) at 3.35 TB/s.
+    read, the four outputs written, the tables' mask slots and each
+    board row's two 2-byte swap entries read) at 3.35 TB/s.
     The operations are integer compares and adds, for which the table of
     peaks has no rate, so they give no bound."""
     from alphazero_tpu_torch.ops import env_step as ES
@@ -1088,7 +1110,8 @@ def _env_step_times(cfg, ins, reps=5, launches=64):
         for s, a in ins:
             ES.search_step_plain(cfg, s, a)
     B, P = ins[0][0].shape[0], cfg.num_players
-    nbytes = B * (2 * cfg.rows * 7 + 8 + 4 * P + 409 + 8) + 2 * 409 * 4
+    nbytes = (B * (2 * cfg.rows * 7 + 8 + 4 * P + 409 + 8)
+              + ES.pack_slots().nbytes + 4 * cfg.rows)
     return {"ms": _device_ms(kernel, "env_step_kernel", per_call=rounds * n,
                              counter=ES.search_step, reps=reps),
             "host_ms": _time_host_ms(kernel, reps=3) / (rounds * n),
@@ -1101,22 +1124,33 @@ def _env_step_times(cfg, ins, reps=5, launches=64):
 def _env_step_kernel_phase(g, floor_ms):
     """The env-step kernel against ``search_step_plain`` on the card, byte
     for byte: playout states x all 409 actions on every config of
-    ``ENV_STEP_CONFIGS`` (a made-up pending noble choice added under noble
+    ``ENV_STEP_CONFIGS`` (made-up pending noble choices added under noble
     select), then every 8th simulation's transition of the main path's
     search; its device time at ``ENV_STEP_SHAPES`` (boards of that search)
-    beside its bound and the launch floor ``floor_ms``, and the plain
-    version's device and host times."""
+    and at B=1024 on 3- and 4-player playout states with legal actions
+    (held to plain too) beside its bound and the launch floor
+    ``floor_ms``, and the plain version's device and host times."""
     import torch
     from alphazero_tpu_torch.games.splendor import env as E
     from alphazero_tpu_torch.ops import env_step as ES
     t0 = time.perf_counter()
-    states = {p: _env_step_playouts(p, g) for p in (2, 3, 4)}
+    # 64 boards kept per ply: the first 2 are the checked states, all of
+    # them the pool the 3- and 4-player timings draw from
+    play = {p: _env_step_playouts(p, g, per_ply=64) for p in (2, 3, 4)}
+    states = {p: s.view(len(ENV_STEP_KEEP), 64, *s.shape[1:])[:, :2]
+              .reshape(-1, *s.shape[1:]) for p, s in play.items()}
     worst, boards = 0.0, 0
     for kw in ENV_STEP_CONFIGS:
         cfg = E.SplendorConfig(**kw)
         st = states[cfg.num_players]
         if cfg.enable_noble_select:
-            st = torch.cat([st, _pending_nobles(cfg, st[4])[None]])
+            # pending choices of two nobles, and of one, three, and the
+            # first and third (not reached by play; the kernel reads the
+            # flags' running count)
+            st = torch.cat([st] + [
+                _pending_nobles(cfg, st[4 + i], flags)[None]
+                for i, flags in enumerate(((0, 1), (0,), (0, 1, 2),
+                                           (0, 2)))])
         rounds = st[:, 0, 6].int() & 0xFF
         if not bool((rounds > 127).any()):
             raise AssertionError(f"env_step {kw}: no state past round 127")
@@ -1154,6 +1188,20 @@ def _env_step_kernel_phase(g, floor_ms):
               f"{t['host_ms'] * 1e3:.1f} us per search_step call, plain "
               f"device {t['plain_ms'] * 1e3:.1f} us, host "
               f"{t['plain_host_ms'] * 1e3:.1f} us per call", flush=True)
+    for p in (3, 4):
+        pcfg, ins = _env_step_players_inputs(play[p], p, g)
+        e = max(_step_diff(ES.search_step(pcfg, s, a),
+                           ES.search_step_plain(pcfg, s, a)) for s, a in ins)
+        if e != 0.0:
+            raise AssertionError(f"env_step {p} players disagrees: {e}")
+        t = shapes[f"P{p}_B1024"] = _env_step_times(pcfg, ins)
+        print(f"env_step {p} players B=1024 (playout states, legal "
+              f"actions, held to plain: max |kernel - plain| = {e:.3g}): "
+              f"kernel {t['ms'] * 1e3:.3f} us/launch (bound "
+              f"{t['bound_ms'] * 1e3:.4f} us by bytes: {t['bytes']} bytes; "
+              f"launch floor {floor_ms * 1e3:.3f} us), plain device "
+              f"{t['plain_ms'] * 1e3:.1f} us", flush=True)
+    del play
     main = shapes["B1024"]
     seconds = time.perf_counter() - t0
     print(f"env_step phase {seconds:.1f} s", flush=True)

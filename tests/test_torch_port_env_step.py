@@ -180,6 +180,14 @@ def test_pack_tables_unpack_to_tables_py():
         bits = [b for shift, width in fields.values()
                 for b in range(shift, shift + width)]
         assert len(bits) == len(set(bits)) and max(bits) < 31
+    # the kernel's buffer starts with these words; its slot level words
+    # carry the kind and the parameter
+    np.testing.assert_array_equal(
+        ES.packed_tables()[:2 * T.NUM_ACTIONS], packed.ravel())
+    levels = ES.slot_words()[0]
+    for name in ("kind", "param"):
+        np.testing.assert_array_equal(f(levels, ES.SLOT_LEVEL_FIELDS, name),
+                                      f(step, ES.STEP_FIELDS, name))
 
 
 def _args(cfg, B=3):
