@@ -1,0 +1,8 @@
+"""Share of the traced B=1 requests' window in which no device operation
+ran."""
+
+from h100bench.metrics import _read as R
+
+
+def read(data):
+    return R.idle_share(data)

@@ -1,0 +1,7 @@
+"""Published peaks of one NVIDIA H100 SXM5 (NVIDIA's data sheet, dense
+rates without sparsity, at the full 700 W power limit)."""
+
+FP32_FLOPS = 67e12          # float32 outside the tensor cores
+TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
+HBM_BYTES_PER_S = 3.35e12
