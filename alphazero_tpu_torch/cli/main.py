@@ -15,11 +15,13 @@ and training over it:
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 
 from ..parallel import distributed as D
 from ..train.coach import Coach, CoachConfig, completed_iterations
+from ..utils import profiling
 
 log = logging.getLogger(__name__)
 
@@ -182,18 +184,13 @@ def _run(args):
             log.info("resuming at iteration %d of %d", start_iter,
                      coach.cfg.num_iters)
     if args.profile:
-        from torch.profiler import ProfilerActivity, profile
         coach.cfg = CoachConfig(**{**vars(coach.cfg), "num_iters": 1,
                                    "games_per_iter": coach.cfg.selfplay_batch})
-        acts = [ProfilerActivity.CPU]
-        if coach.device.type == "cuda":
-            acts.append(ProfilerActivity.CUDA)
-        with profile(activities=acts) as prof:
+        with profiling.trace("./torch-trace") as prof:
             coach.learn()
-        os.makedirs("./torch-trace", exist_ok=True)
-        prof.export_chrome_trace("./torch-trace/trace.json")
         print(prof.key_averages().table(sort_by="self_cpu_time_total",
                                         row_limit=25))
+        print(json.dumps(profiling.counters()))
     else:
         coach.learn(start_iter=start_iter)
 

@@ -43,6 +43,7 @@ from ..games.splendor import env as E
 from ..search import mcts as M
 from ..utils import checkpoint as CKPT
 from ..utils.device import resolve_device
+from ..utils.profiling import count, span
 
 log = logging.getLogger(__name__)
 
@@ -84,15 +85,24 @@ class MCTSPlayer:
         return self._searches[cfg]
 
     def play(self, board) -> int:
-        res = self.search(self.net, torch.as_tensor(
-            np.asarray(board), device=self.game.device)[None],
-            generator=self._gen)
-        counts = res.counts[0].cpu().numpy()
-        if self.temp <= 1e-6:
-            return int(counts.argmax())
-        p = counts ** (1.0 / self.temp)
-        p = p / p.sum()
-        return int(np.random.default_rng().choice(len(p), p=p))
+        """The action for ``board``: the search's most visited edge, or one
+        drawn from its counts at ``temp``.  While a profiler records, the
+        host time outside the search falls into the spans
+        ``player.upload`` and ``player.answer``, and ``player.requests``
+        counts the calls."""
+        with span("player.upload"):
+            search = self.search
+            roots = torch.as_tensor(np.asarray(board),
+                                    device=self.game.device)[None]
+        res = search(self.net, roots, generator=self._gen)
+        with span("player.answer"):
+            count("player.requests")
+            counts = res.counts[0].cpu().numpy()
+            if self.temp <= 1e-6:
+                return int(counts.argmax())
+            p = counts ** (1.0 / self.temp)
+            p = p / p.sum()
+            return int(np.random.default_rng().choice(len(p), p=p))
 
 
 def create_player(spec: str, game, args):

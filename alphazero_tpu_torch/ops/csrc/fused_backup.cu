@@ -23,7 +23,10 @@
 //   pvalid_new[b] + 1 in lane PVALID and the node scalars in columns A and
 //   A + 1 (terminal flag, rotation, initial value; term_vec in lanes 0..P-1).
 //   It builds in registers what the operand contract is handed as tensors
-//   and touches only the elements that receive a term.
+//   and touches only the elements that receive a term.  Given a counter
+//   (a profiler records), each board adds min(depth, S1) + (installs << 32)
+//   to it with one atomicAdd: the search's live path levels and child
+//   installs, which the descent's and the backup's byte counts need.
 //
 // What bounds each contract on this card (B = 1024, C = 411): the packed
 // operand contract moves about 20 MB per launch, nearly all of it the
@@ -481,7 +484,7 @@ fused_backup_entry_kernel(
     const unsigned char* __restrict__ child_term,
     const long long* __restrict__ child_rot,
     const float* __restrict__ leaf_init_v, long long leaf_init_stride,
-    const float* __restrict__ term_vec) {
+    const float* __restrict__ term_vec, unsigned long long* counter) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int b = blockIdx.x;
@@ -625,6 +628,9 @@ fused_backup_entry_kernel(
     __syncwarp();                 // the path has stored
     if (ne != nullptr) add_one(ne, node_term);
   }
+  if (counter != nullptr && lane == 0)
+    atomicAdd(counter, static_cast<unsigned long long>(max(d, 0)) |
+                           (static_cast<unsigned long long>(cv != 0.0f) << 32));
 }
 
 }  // namespace
@@ -652,13 +658,14 @@ static int entry_launch(
     const long long* action, const unsigned char* fresh, const int* slot,
     const float* pvalid_new, const unsigned char* child_term,
     const long long* child_rot, const float* leaf_init_v,
-    long long leaf_init_stride, const float* term_vec, void* stream) {
+    long long leaf_init_stride, const float* term_vec,
+    unsigned long long* counter, void* stream) {
   if (B <= 0) return 0;
   fused_backup_entry_kernel<T><<<B, kThreads, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
       stats, M, C, P, path_p, path_a, path_r, S1, depth, value_vec, leaf_rot,
       parent, action, fresh, slot, pvalid_new, child_term, child_rot,
-      leaf_init_v, leaf_init_stride, term_vec);
+      leaf_init_v, leaf_init_stride, term_vec, counter);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -669,11 +676,12 @@ extern "C" int fused_backup_entry_launch(
     const long long* action, const unsigned char* fresh, const int* slot,
     const float* pvalid_new, const unsigned char* child_term,
     const long long* child_rot, const float* leaf_init_v,
-    long long leaf_init_stride, const float* term_vec, void* stream) {
+    long long leaf_init_stride, const float* term_vec,
+    unsigned long long* counter, void* stream) {
   return entry_launch(stats, B, M, C, P, path_p, path_a, path_r, S1, depth,
                       value_vec, leaf_rot, parent, action, fresh, slot,
                       pvalid_new, child_term, child_rot, leaf_init_v,
-                      leaf_init_stride, term_vec, stream);
+                      leaf_init_stride, term_vec, counter, stream);
 }
 
 // the entry on bfloat16 stats
@@ -684,9 +692,11 @@ extern "C" int fused_backup_entry_bf16_launch(
     const long long* action, const unsigned char* fresh, const int* slot,
     const float* pvalid_new, const unsigned char* child_term,
     const long long* child_rot, const float* leaf_init_v,
-    long long leaf_init_stride, const float* term_vec, void* stream) {
+    long long leaf_init_stride, const float* term_vec,
+    unsigned long long* counter, void* stream) {
   return entry_launch(static_cast<__nv_bfloat16*>(stats), B, M, C, P, path_p,
                       path_a, path_r, S1, depth, value_vec, leaf_rot, parent,
                       action, fresh, slot, pvalid_new, child_term, child_rot,
-                      leaf_init_v, leaf_init_stride, term_vec, stream);
+                      leaf_init_v, leaf_init_stride, term_vec, counter,
+                      stream);
 }

@@ -30,7 +30,11 @@ contract and the split stay float32, as the Pallas kernel is.
 
 Each wrapper takes its plain version only for CPU tensors; for CUDA tensors
 it launches the kernel or raises.  ``fused_backup.launches`` counts every
-kernel launch of any contract.
+kernel launch of any contract.  While a profiler records,
+``backprop_packed`` (kernel or plain) also adds each board's live levels,
+``min(depth, S1)``, and its child install to
+``utils/profiling.py::path_counter``: the kernel with one atomic add per
+board, in the launch it makes anyway.
 
 Precondition, not checked on the card (it would cost a device sync): with a
 node column, a live level's ``path_a`` and a fresh edge's action are edge
@@ -45,6 +49,7 @@ import functools
 
 import torch
 
+from ..utils import profiling
 from . import _build
 
 # lane indices of the stats array (same as the JAX search's)
@@ -55,7 +60,7 @@ _OPERAND_ARGTYPES = [_PTR, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _INT,
                      _PTR, _PTR, _PTR, _PTR, _INT, _PTR, _PTR]
 _ENTRY_ARGTYPES = [_PTR, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _INT, _PTR,
                    _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
-                   ctypes.c_longlong, _PTR, _PTR]
+                   ctypes.c_longlong, _PTR, _PTR, _PTR]
 
 
 @functools.lru_cache(maxsize=None)
@@ -295,6 +300,10 @@ def backprop_packed_plain(stats, *args):
     _check_entry(stats, *args)
     path_p, path_a, w, child_p, child_a, child_v, row, slot = \
         packed_operands(stats, *args)
+    ctr = profiling.path_counter(stats.device)
+    if ctr is not None:
+        levels = args[3].clamp(0, path_p.shape[1]).sum()
+        ctr.add_(levels + ((child_v != 0).sum() << profiling.PATH_LEVEL_BITS))
     node_col = stats.shape[3] - 2
     if stats.dtype == torch.float32:
         return fused_backup_plain(stats, path_p, path_a, w, child_p, child_a,
@@ -346,6 +355,7 @@ def backprop_packed(stats, path_p, path_a, path_r, depth, value_vec, leaf_rot,
             action, fresh, slot, pvalid_new, child_term, child_rot,
             term_vec))
     B, M, _, C = stats.shape
+    ctr = profiling.path_counter(stats.device)
     return _launch(
         _kernels()[1][stats.dtype], stats, B, M, C, value_vec.shape[1],
         path_p.data_ptr(), path_a.data_ptr(), path_r.data_ptr(),
@@ -354,4 +364,4 @@ def backprop_packed(stats, path_p, path_a, path_r, depth, value_vec, leaf_rot,
         parent.data_ptr(), action.data_ptr(), fresh.data_ptr(),
         slot.data_ptr(), pvalid_new.data_ptr(), child_term.data_ptr(),
         child_rot.data_ptr(), leaf_init_v.data_ptr(), leaf_init_v.stride(0),
-        term_vec.data_ptr())
+        term_vec.data_ptr(), None if ctr is None else ctr.data_ptr())

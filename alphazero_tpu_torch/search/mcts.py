@@ -20,10 +20,18 @@ One search core serves both: it runs on a tree whose board ``b`` holds
    fused-backup kernel (``ops/fused_backup.py::backprop_packed``) on every
    simulation, which takes the raw outputs of steps 1 and 2.
 
-The three steps run inside ``torch.profiler.record_function`` spans
-(``mcts.descent``, ``mcts.env_step``, ``mcts.evaluate``, ``mcts.backup``),
-which a profiler run reads to split the search's time.  ``reroot`` runs
-once per move: gathers, one stable sort and scatters, no host read.
+While a profiler records, the search's host time falls into leaf spans
+(``utils/profiling.py::span``), one after another, never nested:
+``mcts.root`` (entering the search: the tree, the root's mask,
+evaluation, noise and row, the one host sync), then per simulation
+``mcts.descent``, ``mcts.env_step``, ``mcts.evaluate`` (steps 1 and 2),
+``mcts.store`` (the child's seat rotation, terminal flag and state stored
+into the tree) and ``mcts.backup`` (the leaf frame and step 3), and last
+``mcts.result`` (the root's counts, Q and pruning).  It counts
+``mcts.searches``, ``mcts.board_sims`` (boards x simulations) and
+``mcts.path_cells`` (those x the path buffer's width); the backup counts
+the live path levels and installs.  ``reroot`` runs once per move:
+gathers, one stable sort and scatters, no host read.
 
 Results equal the JAX search's: the PUCT score keeps its float32
 association, ties go to the lowest index, forced playouts read the sim
@@ -47,11 +55,11 @@ import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from ..ops.descent import select as _select
 from ..ops.fused_backup import backprop_packed
 from ..utils.device import resolve_device
+from ..utils.profiling import count, span
 
 EPS = 1e-8
 
@@ -179,8 +187,9 @@ def stats_dtype(cfg: MCTSConfig, keep_cap: int) -> torch.dtype:
 def _build_core(cfg: MCTSConfig, num_players: int, eval_fn: EvalFn,
                 step_fn: StepFn, valid_fn, keep_cap: int, dev: torch.device):
     """The search over a caller's tree with per-board node counts ``n0``
-    (1: a fresh root-only tree).  Returns ``(init_tree, run, M)`` with
-    capacity ``M = num_sims + keep_cap + 1``."""
+    (1: a fresh root-only tree).  Returns ``(init_tree, run, search, M)``
+    with capacity ``M = num_sims + keep_cap + 1``: ``search`` runs on fresh
+    root-only trees."""
     sdt = stats_dtype(cfg, keep_cap)
     if cfg.pallas_backup:
         raise NotImplementedError(
@@ -210,67 +219,89 @@ def _build_core(cfg: MCTSConfig, num_players: int, eval_fn: EvalFn,
         ``(SearchResult, tree, n0 + num_sims)``.  With ``add_noise``,
         ``noise_gamma [B, A]`` replaces the Gamma(alpha) draws of the
         Dirichlet noise; without it they come from ``generator``."""
-        states, stats, parent_ids = tree
-        B = states.shape[0]
-        ar = torch.arange(B, device=dev)
-        roots = states[:, 0]
-        root_valid = valid_fn(roots)                              # [B, A]
-        A = root_valid.shape[1]
-        pi0, v0 = eval_fn(params, roots.to(torch.float32), root_valid)
-        pi0 = _normalize_masked(pi0, root_valid)
-        if cfg.add_noise:
-            if cfg.prior_temp != 1.0:
-                pi0 = _normalize_masked(pi0 ** (1.0 / cfg.prior_temp),
-                                        root_valid)
-            if noise_gamma is None:
-                alpha = torch.full((B, A), cfg.dirichlet_alpha,
-                                   dtype=torch.float32, device=dev)
-                noise_gamma = torch._standard_gamma(alpha, generator=generator)
-            noise = _normalize_masked(noise_gamma.to(dev), root_valid)
-            pi0 = _normalize_masked((1.0 - cfg.dirichlet_frac) * pi0
-                                    + cfg.dirichlet_frac * noise, root_valid)
+        return simulate(params, lambda: (tree, n0), generator, noise_gamma)
 
-        # the root's prior row is rewritten on every call; a carried root
-        # keeps its visit count, value sum and edge stats, a fresh one
-        # starts from the net's value (each stored in the stats' dtype)
-        carried = n0 > 1
-        stats[:, 0, _PVALID, :A] = torch.where(root_valid, pi0, -1.0)
-        stats[:, 0, _EN, A] = torch.where(carried, stats[:, 0, _EN, A], 0.0)
-        stats[:, 0, _EW, A] = torch.where(carried, stats[:, 0, _EW, A],
-                                          v0[:, 0])
-        # board b holds n0[b] + i nodes before sim i and a path never
-        # revisits a node, so the largest count bounds every descent (the
-        # plain descent's loop bound; the kernel's boards run until they stop)
-        n_max = int(n0.max())
-        # row i: the node sim i expands on each board, n0 + i (made once,
-        # so a sim takes its row as a view and launches nothing for it)
-        slots = n0[None, :] + torch.arange(S, dtype=torch.int32,
-                                           device=dev)[:, None]
-        slots_l = slots.long()
+    def search(params, roots, generator=None, noise_gamma=None):
+        """``run`` on root-only trees for ``roots``; the ``SearchResult``."""
+        return simulate(params, lambda: init_tree(roots), generator,
+                        noise_gamma)[0]
+
+    def simulate(params, make_tree, generator, noise_gamma):
+        """``run`` on the tree and node counts ``make_tree()`` returns,
+        which counts as the search's root time."""
+        with span("mcts.root"):
+            tree, n0 = make_tree()
+            states, stats, parent_ids = tree
+            B = states.shape[0]
+            ar = torch.arange(B, device=dev)
+            roots = states[:, 0]
+            root_valid = valid_fn(roots)                          # [B, A]
+            A = root_valid.shape[1]
+            pi0, v0 = eval_fn(params, roots.to(torch.float32), root_valid)
+            pi0 = _normalize_masked(pi0, root_valid)
+            if cfg.add_noise:
+                if cfg.prior_temp != 1.0:
+                    pi0 = _normalize_masked(pi0 ** (1.0 / cfg.prior_temp),
+                                            root_valid)
+                if noise_gamma is None:
+                    alpha = torch.full((B, A), cfg.dirichlet_alpha,
+                                       dtype=torch.float32, device=dev)
+                    noise_gamma = torch._standard_gamma(alpha,
+                                                        generator=generator)
+                noise = _normalize_masked(noise_gamma.to(dev), root_valid)
+                pi0 = _normalize_masked((1.0 - cfg.dirichlet_frac) * pi0
+                                        + cfg.dirichlet_frac * noise,
+                                        root_valid)
+
+            # the root's prior row is rewritten on every call; a carried
+            # root keeps its visit count, value sum and edge stats, a fresh
+            # one starts from the net's value (each stored in the stats'
+            # dtype)
+            carried = n0 > 1
+            stats[:, 0, _PVALID, :A] = torch.where(root_valid, pi0, -1.0)
+            stats[:, 0, _EN, A] = torch.where(carried, stats[:, 0, _EN, A],
+                                              0.0)
+            stats[:, 0, _EW, A] = torch.where(carried, stats[:, 0, _EW, A],
+                                              v0[:, 0])
+            # board b holds n0[b] + i nodes before sim i and a path never
+            # revisits a node, so the largest count bounds every descent
+            # (the plain descent's loop bound; the kernel's boards run
+            # until they stop)
+            n_max = int(n0.max())
+            # row i: the node sim i expands on each board, n0 + i (made
+            # once, so a sim takes its row as a view and launches nothing
+            # for it)
+            slots = n0[None, :] + torch.arange(S, dtype=torch.int32,
+                                               device=dev)[:, None]
+            slots_l = slots.long()
+            count("mcts.searches")
+            count("mcts.board_sims", B * S)
+            count("mcts.path_cells", B * S * PL)
 
         for i in range(S):
-            with record_function("mcts.descent"):
+            with span("mcts.descent"):
                 (parent, action, existing, depth, parent_rot, path_p, path_a,
                  path_r) = _select(cfg, stats, i, PL, min(n_max + i, PL))
-            fresh = existing == 0
-            slot = slots[i]
-
-            with record_function("mcts.env_step"):
+            with span("mcts.env_step"):
                 child_state, term_vec, child_valid, adv = step_fn(
                     states[ar, parent], action)
-            child_rot = (parent_rot + adv) % P
-            with record_function("mcts.evaluate"):
+            with span("mcts.evaluate"):
                 probs, values = eval_fn(params, child_state.to(torch.float32),
                                         child_valid)
                 probs = _normalize_masked(probs, child_valid)
-            child_term = term_vec.abs().sum(-1) > 0
-            # written on a revisit too, as an unreferenced dead slot; only
-            # reroot reads parent ids, so a fresh search's tree skips them
-            states[ar, slots_l[i]] = child_state
-            if keep_cap:
-                parent_ids[ar, slots_l[i]] = parent.to(torch.int32)
+            with span("mcts.store"):
+                fresh = existing == 0
+                slot = slots[i]
+                child_rot = (parent_rot + adv) % P
+                child_term = term_vec.abs().sum(-1) > 0
+                # written on a revisit too, as an unreferenced dead slot;
+                # only reroot reads parent ids, so a fresh search's tree
+                # skips them
+                states[ar, slots_l[i]] = child_state
+                if keep_cap:
+                    parent_ids[ar, slots_l[i]] = parent.to(torch.int32)
 
-            with record_function("mcts.backup"):
+            with span("mcts.backup"):
                 # leaf frame: a revisited leaf's scalars come from its row
                 leaf = stats[ar, existing, :, A:].float()         # [B, 4, 2]
                 leaf_term = torch.where(fresh, child_term,
@@ -286,28 +317,29 @@ def _build_core(cfg: MCTSConfig, num_players: int, eval_fn: EvalFn,
                                 child_term, child_rot, values[:, 0],
                                 term_vec)
 
-        root = stats[:, 0].float()                        # [B, 4, A+2]
-        counts = root[:, _EN, :A].to(torch.int32)
-        root_prior = root[:, _PVALID, :A].clamp(min=0.0)
-        qs = root[:, _EW, A] / (root[:, _EN, A] + 1.0)
-        q = torch.cat([qs[:, None],
-                       (-qs / (P - 1))[:, None].expand(B, P - 1)], 1)
-        out_counts = counts.to(torch.float32)
-        if cfg.forced_playouts:
-            # policy target pruning over this call's sims
-            best = counts.max(1, keepdim=True).values
-            pruned = counts - torch.floor(torch.sqrt(
-                cfg.k_forced * root_prior * S)).to(torch.int32)
-            adj = torch.where(counts == best, counts, pruned)
-            out_counts = torch.where(adj > 1, adj, 0).to(torch.float32)
-            total = out_counts.sum(-1, keepdim=True)
-            out_counts = torch.where(total > 0, out_counts,
-                                     counts.to(torch.float32))
-        result = SearchResult(counts=out_counts, raw_counts=counts, q=q,
-                              root_value=v0, root_prior=root_prior)
-        return result, tree, n0 + S
+        with span("mcts.result"):
+            root = stats[:, 0].float()                    # [B, 4, A+2]
+            counts = root[:, _EN, :A].to(torch.int32)
+            root_prior = root[:, _PVALID, :A].clamp(min=0.0)
+            qs = root[:, _EW, A] / (root[:, _EN, A] + 1.0)
+            q = torch.cat([qs[:, None],
+                           (-qs / (P - 1))[:, None].expand(B, P - 1)], 1)
+            out_counts = counts.to(torch.float32)
+            if cfg.forced_playouts:
+                # policy target pruning over this call's sims
+                best = counts.max(1, keepdim=True).values
+                pruned = counts - torch.floor(torch.sqrt(
+                    cfg.k_forced * root_prior * S)).to(torch.int32)
+                adj = torch.where(counts == best, counts, pruned)
+                out_counts = torch.where(adj > 1, adj, 0).to(torch.float32)
+                total = out_counts.sum(-1, keepdim=True)
+                out_counts = torch.where(total > 0, out_counts,
+                                         counts.to(torch.float32))
+            result = SearchResult(counts=out_counts, raw_counts=counts, q=q,
+                                  root_value=v0, root_prior=root_prior)
+            return result, tree, n0 + S
 
-    return init_tree, run, M
+    return init_tree, run, search, M
 
 
 def build_search(mcts_cfg: MCTSConfig, num_players: int, eval_fn: EvalFn,
@@ -321,13 +353,8 @@ def build_search(mcts_cfg: MCTSConfig, num_players: int, eval_fn: EvalFn,
     of the Dirichlet noise (the JAX search draws them with
     ``jax.random.gamma``); without it they come from ``generator``."""
     _resolve_stage_schedule(mcts_cfg)
-    init_tree, run, _ = _build_core(mcts_cfg, num_players, eval_fn, step_fn,
-                                    valid_fn, 0, resolve_device(device))
-
-    def search(params, roots, generator=None, noise_gamma=None):
-        return run(params, *init_tree(roots), generator, noise_gamma)[0]
-
-    return search
+    return _build_core(mcts_cfg, num_players, eval_fn, step_fn, valid_fn, 0,
+                       resolve_device(device))[2]
 
 
 def build_reusing_search(mcts_cfg: MCTSConfig, num_players: int,
@@ -341,8 +368,8 @@ def build_reusing_search(mcts_cfg: MCTSConfig, num_players: int,
     dev = resolve_device(device)
     if keep_cap <= 0:
         keep_cap = mcts_cfg.num_sims
-    init_tree, run, M = _build_core(mcts_cfg, num_players, eval_fn, step_fn,
-                                    valid_fn, keep_cap, dev)
+    init_tree, run, _, M = _build_core(mcts_cfg, num_players, eval_fn,
+                                       step_fn, valid_fn, keep_cap, dev)
     P = num_players
     KMAX = keep_cap + 1          # kept nodes, the new root included
 

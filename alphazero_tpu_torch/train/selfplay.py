@@ -18,6 +18,14 @@ The JAX actor fuses ``chunk_moves`` moves into one ``lax.scan`` call; the
 port runs a Python loop over moves.  It plays the same number of moves:
 whole chunks, until every game has ended or the chunk that reaches
 ``max_moves`` is done.  Randomness comes from one ``torch.Generator``.
+
+While a profiler records, the actor's host time outside its search calls
+falls into three leaf spans (``utils/profiling.py::span``):
+``selfplay.split`` (the PCR permutation, the index splits and the merges),
+``selfplay.move`` (initial states, sampling, the chance step, the noble
+step, the seat swap, the end check, the results, reroot) and
+``selfplay.host`` (every read back to the host: the loop's flags, the
+examples, the finalize); it counts ``selfplay.plies``.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from ..games.splendor import env as E
 from ..parallel import distributed as D
 from ..search import mcts as M
 from ..utils.device import resolve_device
+from ..utils.profiling import count, span
 from .replay import Iteration
 
 log = logging.getLogger(__name__)
@@ -164,53 +173,62 @@ class SelfPlayEngine:
                 rs = self.rs_full if b_full >= B else self.rs_fast
                 res, tree, n = rs.run(bundle, *carry, generator=gen)
                 carry = tree, n
-            is_full = torch.full((B,), b_full >= B, dtype=torch.bool,
-                                 device=self.device)
+            with span("selfplay.split"):
+                is_full = torch.full((B,), b_full >= B, dtype=torch.bool,
+                                     device=self.device)
             return res.counts, res.q, is_full, carry
-        # stratified split; finished boards sort last (into the fast part)
-        u_b = torch.rand(B, generator=gen, device=self.device)
-        perm = torch.argsort(u_b + done.to(torch.float32), stable=True)
-        inv = torch.empty_like(perm)
-        inv[perm] = torch.arange(B, device=self.device)
-        idx_f, idx_s = perm[:b_full], perm[b_full:]
+        with span("selfplay.split"):
+            # stratified split; finished boards sort last (into the fast
+            # part)
+            u_b = torch.rand(B, generator=gen, device=self.device)
+            perm = torch.argsort(u_b + done.to(torch.float32), stable=True)
+            inv = torch.empty_like(perm)
+            inv[perm] = torch.arange(B, device=self.device)
+            idx_f, idx_s = perm[:b_full], perm[b_full:]
 
-        def merge(a, b):
-            return torch.cat([a, b])[inv]
+            def merge(a, b):
+                return torch.cat([a, b])[inv]
+            if carry is None:
+                parts = states[idx_f], states[idx_s]
+            else:
+                # each part searches a copy of its boards' trees, which
+                # then goes back into the batch's tensors
+                tree, n = carry
+                parts = ((M.Tree(*(t[idx_f] for t in tree)), n[idx_f]),
+                         (M.Tree(*(t[idx_s] for t in tree)), n[idx_s]))
         if carry is None:
-            res_f = self.search_full(bundle, states[idx_f], generator=gen)
-            res_s = self.search_fast(bundle, states[idx_s], generator=gen)
+            res_f = self.search_full(bundle, parts[0], generator=gen)
+            res_s = self.search_fast(bundle, parts[1], generator=gen)
         else:
-            # each part searches a copy of its boards' trees, which then
-            # goes back into the batch's tensors
-            tree, n = carry
-            res_f, tf, nf = self.rs_full.run(
-                bundle, M.Tree(*(t[idx_f] for t in tree)), n[idx_f],
-                generator=gen)
-            res_s, ts, ns = self.rs_fast.run(
-                bundle, M.Tree(*(t[idx_s] for t in tree)), n[idx_s],
-                generator=gen)
-            for t, a, b in zip(tree, tf, ts):
-                t[idx_f], t[idx_s] = a, b
-            carry = tree, merge(nf, ns)
-        is_full = merge(torch.ones(b_full, dtype=torch.bool,
-                                   device=self.device),
-                        torch.zeros(B - b_full, dtype=torch.bool,
-                                    device=self.device))
-        return (merge(res_f.counts, res_s.counts), merge(res_f.q, res_s.q),
-                is_full, carry)
+            res_f, tf, nf = self.rs_full.run(bundle, *parts[0], generator=gen)
+            res_s, ts, ns = self.rs_fast.run(bundle, *parts[1], generator=gen)
+        with span("selfplay.split"):
+            if carry is not None:
+                for t, a, b in zip(tree, tf, ts):
+                    t[idx_f], t[idx_s] = a, b
+                carry = tree, merge(nf, ns)
+            is_full = merge(torch.ones(b_full, dtype=torch.bool,
+                                       device=self.device),
+                            torch.zeros(B - b_full, dtype=torch.bool,
+                                        device=self.device))
+            return (merge(res_f.counts, res_s.counts),
+                    merge(res_f.q, res_s.q), is_full, carry)
 
     def _resolve_nobles(self, bundle, states_mid, adv, gen):
         """Boards whose move left a pending noble choice (``adv == 0``) pick
         a noble with a fast search in the same mover's frame."""
-        pend = adv == 0
-        if not bool(pend.any()):
-            return states_mid
+        with span("selfplay.move"):
+            pend = adv == 0
+        with span("selfplay.host"):
+            if not bool(pend.any()):
+                return states_mid
         res = self.search_fast(bundle, states_mid, generator=gen)
-        acts = torch.argmax(res.counts, -1)
-        u = torch.rand(states_mid.shape[0], 2, generator=gen,
-                       device=self.device)
-        s3, _ = E.step(self.env_cfg, states_mid, acts, 0, u, False)
-        return torch.where(pend[:, None, None], s3, states_mid)
+        with span("selfplay.move"):
+            acts = torch.argmax(res.counts, -1)
+            u = torch.rand(states_mid.shape[0], 2, generator=gen,
+                           device=self.device)
+            s3, _ = E.step(self.env_cfg, states_mid, acts, 0, u, False)
+            return torch.where(pend[:, None, None], s3, states_mid)
 
     def run_games(self, params_bundle, generator: torch.Generator | None = None,
                   collect: bool = True):
@@ -225,77 +243,89 @@ class SelfPlayEngine:
     def run_local_games(self, params_bundle, generator=None, collect=True):
         """``run_games`` of this rank's boards only, nothing gathered."""
         cfg, n, ecfg, dev = self.cfg, self.n, self.env_cfg, self.device
-        B = cfg.batch_size
-        max_moves = cfg.max_moves or ecfg.max_moves
-        n_moves = -(-max_moves // cfg.chunk_moves) * cfg.chunk_moves
-        gen = generator
-        if gen is None:
-            gen = torch.Generator(device=dev).manual_seed(0)
+        with span("selfplay.move"):
+            B = cfg.batch_size
+            max_moves = cfg.max_moves or ecfg.max_moves
+            n_moves = -(-max_moves // cfg.chunk_moves) * cfg.chunk_moves
+            gen = generator
+            if gen is None:
+                gen = torch.Generator(device=dev).manual_seed(0)
 
-        states = E.initial_state(ecfg, B, gen, dev)
-        offset = 0
-        done = torch.zeros(B, dtype=torch.bool, device=dev)
-        results = torch.zeros((B, n), dtype=torch.float32, device=dev)
-        collected = []
-        total_moves = total_sims = 0
-        carry = self.rs_full.init_tree(states) if cfg.tree_reuse else None
+            states = E.initial_state(ecfg, B, gen, dev)
+            offset = 0
+            done = torch.zeros(B, dtype=torch.bool, device=dev)
+            results = torch.zeros((B, n), dtype=torch.float32, device=dev)
+            collected = []
+            total_moves = total_sims = 0
+            carry = self.rs_full.init_tree(states) if cfg.tree_reuse else None
 
         for move in range(n_moves):
-            valids = self.valid_fn(states)
+            with span("selfplay.move"):
+                valids = self.valid_fn(states)
             counts, q, is_full, carry = self._search(params_bundle, states,
                                                      done, gen, carry)
-            temp = cfg.temp_early if move < cfg.temp_threshold else cfg.temp_late
-            actions = sample_actions(counts, temp,
-                                     gumbel_noise(counts.shape, gen, dev))
-            u = torch.rand(B, 2, generator=gen, device=dev)
-            # finished boards keep their final position but still rotate
-            # seats, so the batch shares one canonical rotation offset
-            s2, nxt = E.step(ecfg, states, actions, 0, u, False)
-            states_mid = torch.where(done[:, None, None], states, s2)
+            with span("selfplay.move"):
+                temp = (cfg.temp_early if move < cfg.temp_threshold
+                        else cfg.temp_late)
+                actions = sample_actions(counts, temp,
+                                         gumbel_noise(counts.shape, gen, dev))
+                u = torch.rand(B, 2, generator=gen, device=dev)
+                # finished boards keep their final position but still
+                # rotate seats, so the batch shares one canonical rotation
+                # offset
+                s2, nxt = E.step(ecfg, states, actions, 0, u, False)
+                states_mid = torch.where(done[:, None, None], states, s2)
+                if ecfg.enable_noble_select:
+                    adv = torch.where(done, 1, nxt)
             if ecfg.enable_noble_select:
-                adv = torch.where(done, 1, nxt)
                 states_mid = self._resolve_nobles(params_bundle, states_mid,
                                                   adv, gen)
-            states2 = E.swap_players(ecfg, states_mid, 1)
-            offset2 = (offset + 1) % n
-            ends = torch.roll(E.check_end_game(ecfg, states2), offset2, 1)
-            newly = ends.any(1) & ~done
-            results = torch.where(newly[:, None], ends, results)
-            if carry is not None:
-                # a board whose real chance draw (or noble choice) left the
-                # tree fails reroot's state match and restarts fresh
-                carry = self.rs_full.reroot(carry[0], actions, states2)
+            with span("selfplay.move"):
+                states2 = E.swap_players(ecfg, states_mid, 1)
+                offset2 = (offset + 1) % n
+                ends = torch.roll(E.check_end_game(ecfg, states2), offset2, 1)
+                newly = ends.any(1) & ~done
+                done2 = done | newly
+                results = torch.where(newly[:, None], ends, results)
+                if carry is not None:
+                    # a board whose real chance draw (or noble choice) left
+                    # the tree fails reroot's state match and restarts fresh
+                    carry = self.rs_full.reroot(carry[0], actions, states2)
+                count("selfplay.plies")
 
-            alive = (~done).cpu().numpy()
-            full = is_full.cpu().numpy()
-            total_moves += int(alive.sum())
-            total_sims += (int((alive & full).sum()) * cfg.num_sims
-                           + int((alive & ~full).sum()) * self.fast_sims)
-            if collect:
-                self._collect(collected, alive & full, states, counts,
-                              valids, q, offset)
-            states, offset, done = states2, offset2, done | newly
-            if bool(done.all()):
-                break
+            with span("selfplay.host"):
+                alive = (~done).cpu().numpy()
+                full = is_full.cpu().numpy()
+                total_moves += int(alive.sum())
+                total_sims += (int((alive & full).sum()) * cfg.num_sims
+                               + int((alive & ~full).sum()) * self.fast_sims)
+                if collect:
+                    self._collect(collected, alive & full, states, counts,
+                                  valids, q, offset)
+                states, offset, done = states2, offset2, done2
+                if bool(done.all()):
+                    break
 
-        results_np = results.cpu().numpy()
-        done_np = done.cpu().numpy()
-        if not done_np.all():
-            # settle unfinished games by the unconditional judge: at the cap
-            # the round count need not sit on a turn boundary
-            ends = np.roll(E.judge(ecfg, states).cpu().numpy(), offset, 1)
-            results_np[~done_np] = ends[~done_np]
+        with span("selfplay.host"):
+            results_np = results.cpu().numpy()
+            done_np = done.cpu().numpy()
+            if not done_np.all():
+                # settle unfinished games by the unconditional judge: at the
+                # cap the round count need not sit on a turn boundary
+                ends = np.roll(E.judge(ecfg, states).cpu().numpy(), offset, 1)
+                results_np[~done_np] = ends[~done_np]
 
-        stats = {"games": B, "avg_moves": total_moves / B,
-                 "rollouts": total_sims, "examples": 0}
-        if not collect or not collected:
-            return None, stats
-        scores = np.roll(E.all_scores(ecfg, states).cpu().numpy(), offset, 1)
-        it = finalize_examples(collected, results_np, scores)
-        if it is None:
-            return None, stats
-        stats["examples"] = len(it)
-        return it, stats
+            stats = {"games": B, "avg_moves": total_moves / B,
+                     "rollouts": total_sims, "examples": 0}
+            if not collect or not collected:
+                return None, stats
+            scores = np.roll(E.all_scores(ecfg, states).cpu().numpy(),
+                             offset, 1)
+            it = finalize_examples(collected, results_np, scores)
+            if it is None:
+                return None, stats
+            stats["examples"] = len(it)
+            return it, stats
 
     @staticmethod
     def _collect(collected, mask, states, counts, valids, q, player):

@@ -8,6 +8,21 @@ own event records: no xprof is needed.
     with profiling.trace("./torch-trace"):
         run_one_iteration()
     profiling.print_top_ops("./torch-trace")
+    print(profiling.counters())
+
+The program's own instrumentation lives here too, and costs one flag check
+while no profiler records:
+
+- ``span(name)``: a host span (``record_function``), on the profiler's
+  clock beside the device's kernels.  The program's spans are leaves, never
+  nested, so each host interval belongs to at most one.
+- ``count(name, n)``: a host counter (searches, simulations, plies,
+  requests).
+- ``path_counter(device)``: the buffer in which the search's backup counts
+  its live path levels and its child installs (``mcts.path_levels``,
+  ``mcts.installs``), on the device, with no launch of its own.
+
+``counters()`` returns what every profiled region of the process counted.
 """
 
 from __future__ import annotations
@@ -20,12 +35,64 @@ import os
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+import torch.autograd.profiler as _autograd_profiler
+from torch.profiler import ProfilerActivity, profile, record_function
 
 log = logging.getLogger(__name__)
 
 TRACE_FILE = "trace.json"
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+_NO_SPAN = contextlib.nullcontext()
+_counts: dict[str, int] = {}
+# device -> int64 [1]: live path levels in the low 32 bits, child installs
+# above them (one atomic add per board); emptied into _counts by counters()
+_path_counters: dict[torch.device, torch.Tensor] = {}
+PATH_LEVEL_BITS = 32
+
+
+def span(name: str):
+    """A host span named ``name`` while a profiler records (a
+    ``record_function``), else a shared null context."""
+    if _autograd_profiler._is_profiler_enabled:
+        return record_function(name)
+    return _NO_SPAN
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add the host integer ``n`` to counter ``name`` while a profiler
+    records."""
+    if _autograd_profiler._is_profiler_enabled:
+        _counts[name] = _counts.get(name, 0) + n
+
+
+def path_counter(device) -> torch.Tensor | None:
+    """The int64 ``[1]`` buffer that the backup on ``device`` adds its
+    live levels and installs to, ``levels + installs << 32`` per board,
+    while a profiler records; else None.  Made once per device by a copy
+    from the host, so it launches no kernel."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return None
+    device = torch.device(device)
+    buf = _path_counters.get(device)
+    if buf is None:
+        buf = _path_counters[device] = torch.tensor([0], dtype=torch.int64,
+                                                    device=device)
+    return buf
+
+
+def counters() -> dict[str, int]:
+    """Every counter the process's profiled regions counted, the devices'
+    path counts included (reading them waits for each device once)."""
+    mask = (1 << PATH_LEVEL_BITS) - 1
+    for buf in _path_counters.values():
+        v = int(buf.item())
+        if v:
+            buf.sub_(v)
+            for name, n in (("mcts.path_levels", v & mask),
+                            ("mcts.installs", v >> PATH_LEVEL_BITS)):
+                _counts[name] = _counts.get(name, 0) + n
+    return dict(_counts)
 
 
 @contextlib.contextmanager
@@ -33,10 +100,12 @@ def trace(trace_dir: str, activities=None):
     """Profile the block and write its Chrome trace (viewable in Perfetto,
     ``chrome://tracing`` or TensorBoard) to ``trace_dir/trace.json``;
     yields the ``torch.profiler.profile``.  ``activities`` defaults to the
-    CUDA kernels when a GPU is present, else the CPU ops."""
+    host's ops and spans, and the CUDA kernels beside them when a GPU is
+    present."""
     if activities is None:
-        activities = [ProfilerActivity.CUDA if torch.cuda.is_available()
-                      else ProfilerActivity.CPU]
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
     with profile(activities=activities) as prof:
         yield prof

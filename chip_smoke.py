@@ -2601,6 +2601,7 @@ def phase_tooling(examples, review_sims=1600):
     from alphazero_tpu_torch.train import replay as R
     from alphazero_tpu_torch.utils import checkpoint as C
     from alphazero_tpu_torch.utils import profiling as PROF
+    from torch.profiler import ProfilerActivity
     r6 = os.path.join(ROOT, "runs", "r6", "best.pt")
     t_phase = time.perf_counter()
     samples, sims, rec = {}, [0], {}
@@ -2670,7 +2671,8 @@ def phase_tooling(examples, review_sims=1600):
             net, _ = C.load_net(r6, game.cfg, game.device)
             trace_dir = os.path.join(tmp, "trace")
             _sync()
-            with PROF.trace(trace_dir):
+            # the kernels alone, all that is read back from this trace
+            with PROF.trace(trace_dir, [ProfilerActivity.CUDA]):
                 t0 = time.perf_counter()
                 pi, q = REVIEW.review_position(game, net, board, review_sims)
                 _sync()
