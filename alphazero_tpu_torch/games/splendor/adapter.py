@@ -5,6 +5,8 @@ Every function here works on a batch: states ``[B, R, 7]`` int8, actions
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from ...models import splendor_net as N
@@ -29,15 +31,20 @@ def net_config_for(cfg: E.SplendorConfig, dropout: float = 0.3,
 
 
 def make_eval_fn(net_cfg: N.NetConfig):
-    """eval_fn(net, states_f32, valids) -> (probs, values); ``net`` is the
-    ``SplendorNet`` that evaluates the leaves, and it must have been built
-    from ``net_cfg``."""
+    """eval_fn(net, states, valids) -> (probs, values) by ``N.infer``
+    (``states`` int8 or float32 boards; on CUDA tensors the net's forward
+    replayed from a CUDA graph); ``net`` is the ``SplendorNet`` that
+    evaluates the leaves, and it must have been built from ``net_cfg``
+    (checked when a net first comes to the evaluator)."""
+    checked = weakref.WeakSet()
+
     def eval_fn(net, states, valids):
-        if net.cfg != net_cfg:
-            raise ValueError(f"the net was built from {net.cfg}, the "
-                             f"evaluator from {net_cfg}")
-        probs, v, _ = N.apply_inference(net, states, valids)
-        return probs, v
+        if net not in checked:
+            if net.cfg != net_cfg:
+                raise ValueError(f"the net was built from {net.cfg}, the "
+                                 f"evaluator from {net_cfg}")
+            checked.add(net)
+        return N.infer(net, states, valids)
     return eval_fn
 
 

@@ -39,6 +39,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import weakref
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
@@ -47,6 +49,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from ..parallel.distributed import all_reduce_sum
+from ..utils import profiling
 from ..utils.checkpoint import tree_items
 from ..utils.device import full_fp32, resolve_device
 
@@ -368,12 +371,142 @@ def build_net(cfg: NetConfig, device="cuda",
     return init_params(cls(cfg), generator).to(dev).eval()
 
 
-def apply_inference(net: nn.Module, boards, valid_actions):
-    """Eval-mode forward: returns (pi probs, v, log_sdiff)."""
-    net.eval()
+def _forward(net: nn.Module, boards, valid_actions):
+    """``net``'s forward as it stands, under ``inference_mode``: (pi probs,
+    v, log_sdiff)."""
     with torch.inference_mode():
         log_pi, v, log_sd = net(boards, valid_actions)
     return torch.exp(log_pi), v, log_sd
+
+
+def apply_inference(net: nn.Module, boards, valid_actions):
+    """Eval-mode forward: returns (pi probs, v, log_sdiff)."""
+    net.eval()
+    return _forward(net, boards, valid_actions)
+
+
+# ------------------------------------------------------------ graphed inference
+# A leaf evaluation of the search is ~40 small kernels, and launching them
+# one by one costs the host more than the card spends on them.  On CUDA
+# tensors ``infer`` replays them from one CUDA graph per net and input
+# shape instead: the same kernels on the same shapes, so the same bits.
+GRAPHS_PER_NET = 8              # graphs (and keys seen once) kept per net
+_GRAPHS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+class _NetGraphs:
+    """One net's captured forwards by key, least recently used first; the
+    keys run eagerly once, which the next call at the key captures; and the
+    memory pool all of them share."""
+
+    def __init__(self, net: nn.Module):
+        # live views of every module's parameters and buffers, so that a
+        # tensor put in a parameter's place changes the key
+        self.tensors = [d.values() for m in net.modules()
+                        for d in (m._parameters, m._buffers) if d]
+        self.graphs: OrderedDict = OrderedDict()
+        self.seen: OrderedDict = OrderedDict()
+        self.pool = None
+
+    def storages(self) -> tuple:
+        """Where each parameter and buffer lives: the graphs read them
+        there, so an update in place keeps a graph valid and a new tensor
+        does not."""
+        return tuple([t.data_ptr() for vals in self.tensors for t in vals
+                      if t is not None])
+
+    def add(self, key, graph):
+        self.graphs[key] = graph
+        if len(self.graphs) > GRAPHS_PER_NET:
+            self.graphs.popitem(last=False)
+        return graph
+
+    def saw(self, key):
+        self.seen[key] = None
+        self.seen.move_to_end(key)
+        if len(self.seen) > GRAPHS_PER_NET:
+            self.seen.popitem(last=False)
+
+
+class _Graph:
+    """``_forward`` of an eval-mode net captured for one input shape: a
+    float32 board input and a mask input that each call copies into, the
+    graph, and its outputs, of which each call returns copies."""
+
+    def __init__(self, net: nn.Module, boards, valid_actions,
+                 cache: _NetGraphs):
+        dev = boards.device
+        if cache.pool is None:
+            cache.pool = torch.cuda.graph_pool_handle()
+        self.boards = boards.to(torch.float32, copy=True,
+                                memory_format=torch.contiguous_format)
+        self.valids = valid_actions.clone(
+            memory_format=torch.contiguous_format)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.Stream()
+            # warm up on the capture stream, outside the capture
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                _forward(net, self.boards, self.valids)
+            torch.cuda.current_stream().wait_stream(stream)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, pool=cache.pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                self.out = _forward(net, self.boards, self.valids)
+
+    def __call__(self, boards, valid_actions):
+        self.boards.copy_(boards)
+        self.valids.copy_(valid_actions)
+        self.graph.replay()
+        probs, v, _ = self.out
+        # copies no later replay overwrites (a search keeps its root value)
+        return probs.clone(), v.clone()
+
+
+def _graphed(net: nn.Module, boards, valid_actions):
+    """``infer`` on an eval-mode net: eager at a key's first sight, captured
+    at its second unless a profiler records, replayed after that.  A key is
+    the boards' shape, dtype and device and where the net's tensors live.
+    Counts ``net.eager_calls``, ``net.graph_captures`` and
+    ``net.graph_replays`` while a profiler records (a capture never
+    happens then)."""
+    cache = _GRAPHS.get(net)
+    if cache is None:
+        cache = _GRAPHS[net] = _NetGraphs(net)
+    key = (boards.shape, boards.dtype, boards.device, cache.storages())
+    graph = cache.graphs.get(key)
+    if graph is not None:
+        cache.graphs.move_to_end(key)
+    elif key in cache.seen and not profiling.recording():
+        del cache.seen[key]
+        graph = cache.add(key, _Graph(net, boards, valid_actions, cache))
+        profiling.count("net.graph_captures")
+    else:
+        cache.saw(key)
+        profiling.count("net.eager_calls")
+        probs, v, _ = _forward(
+            net, boards.to(torch.float32,
+                           memory_format=torch.contiguous_format),
+            valid_actions)
+        return probs, v
+    profiling.count("net.graph_replays")
+    return graph(boards, valid_actions)
+
+
+def infer(net: nn.Module, boards, valid_actions):
+    """``apply_inference``'s (pi probs, v) for ``boards [B, R, 7]`` (int8 or
+    float32, cast to float32 first) and ``valid_actions [B, A]``, leaving
+    the net in eval mode.  On CPU tensors it is ``apply_inference``; on
+    CUDA tensors the forward is replayed from a CUDA graph of the net at
+    that shape (``_graphed``), equal to the eager call bit for bit, and
+    the outputs are the caller's own."""
+    if not boards.is_cuda:
+        probs, v, _ = apply_inference(net, boards.to(torch.float32),
+                                      valid_actions)
+        return probs, v
+    if net.training:
+        net.eval()
+    return _graphed(net, boards, valid_actions)
 
 
 def running_stats(net: nn.Module) -> dict[str, torch.Tensor]:

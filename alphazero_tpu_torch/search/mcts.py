@@ -121,7 +121,7 @@ class ReusingSearch(NamedTuple):
     capacity: int
 
 
-# eval_fn(params, states_f32 [B,R,7], valids [B,A]) -> (probs, values [B,P])
+# eval_fn(params, states [B,R,7] int8, valids [B,A]) -> (probs, values [B,P])
 EvalFn = Callable[..., tuple[torch.Tensor, torch.Tensor]]
 # step_fn(states [B,R,7], actions [B]) ->
 #   (canonical child states, term_vec [B,P], valid [B,A], seat advance [B])
@@ -237,7 +237,7 @@ def _build_core(cfg: MCTSConfig, num_players: int, eval_fn: EvalFn,
             roots = states[:, 0]
             root_valid = valid_fn(roots)                          # [B, A]
             A = root_valid.shape[1]
-            pi0, v0 = eval_fn(params, roots.to(torch.float32), root_valid)
+            pi0, v0 = eval_fn(params, roots, root_valid)
             pi0 = _normalize_masked(pi0, root_valid)
             if cfg.add_noise:
                 if cfg.prior_temp != 1.0:
@@ -286,8 +286,7 @@ def _build_core(cfg: MCTSConfig, num_players: int, eval_fn: EvalFn,
                 child_state, term_vec, child_valid, adv = step_fn(
                     states[ar, parent], action)
             with span("mcts.evaluate"):
-                probs, values = eval_fn(params, child_state.to(torch.float32),
-                                        child_valid)
+                probs, values = eval_fn(params, child_state, child_valid)
                 probs = _normalize_masked(probs, child_valid)
             with span("mcts.store"):
                 fresh = existing == 0

@@ -17,7 +17,7 @@ while no profiler records:
   clock beside the device's kernels.  The program's spans are leaves, never
   nested, so each host interval belongs to at most one.
 - ``count(name, n)``: a host counter (searches, simulations, plies,
-  requests).
+  requests, the net's graph replays, captures and eager calls).
 - ``path_counter(device)``: the buffer in which the search's backup counts
   its live path levels and its child installs (``mcts.path_levels``,
   ``mcts.installs``), on the device, with no launch of its own.
@@ -57,6 +57,11 @@ def span(name: str):
     if _autograd_profiler._is_profiler_enabled:
         return record_function(name)
     return _NO_SPAN
+
+
+def recording() -> bool:
+    """Whether a profiler records."""
+    return _autograd_profiler._is_profiler_enabled
 
 
 def count(name: str, n: int = 1) -> None:

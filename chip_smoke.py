@@ -55,7 +55,13 @@ Phases (each raises on failure):
    stats, one descent and one backup launch per simulation; the search
    with f32 and bf16 stats, and with the f32 and bf16 trunk, in turns;
 5. the same small search on the CPU (plain versions) and on the card, as
-   the reference check;
+   the reference check; then the graphed leaf evaluator
+   (``phase_graphs``): bit for bit against ``apply_inference`` at B = 1,
+   38, 77, 90, 128, 179 and 256 (r6 float32 and bf16 trunk, r12), after
+   an in-place Adam step and with two nets in turns, a search's root
+   values unchanged by later replays, self-play plies and B=1 searches
+   equal to those over an eager evaluator, the traced replay's kernels
+   equal to the eager forward's, host µs per evaluation;
 6. train: ``fit`` for one epoch of r6's ``TrainConfig`` (batch 64, lr 3e-4,
    augmentation on, dropout 0.3, one chunk of 64 steps) on the self-play
    phase's examples, from ``runs/r6/best.pt`` with its Adam moments: steps/s,
@@ -3126,6 +3132,280 @@ def phase_reference():
     return out
 
 
+GRAPH_BATCHES = (1, 38, 77, 90, 128, 179, 256)
+
+
+def _eager_eval_fn(net, states, valids):
+    """The leaf evaluator without graphs: ``apply_inference`` on float32
+    boards, the net's ~40 launches one by one."""
+    import torch
+    from alphazero_tpu_torch.models import splendor_net as N
+    probs, v, _ = N.apply_inference(net, states.to(torch.float32), valids)
+    return probs, v
+
+
+def _graph_at(net, B):
+    """The net's captured forward for int8 boards of batch ``B``."""
+    import torch
+    from alphazero_tpu_torch.models import splendor_net as N
+    [g] = [g for k, g in N._GRAPHS[net].graphs.items()
+           if k[0][0] == B and k[1] == torch.int8]
+    return g
+
+
+def _graph_inputs(num_players, g, n=768):
+    """``n`` playout states (``_env_step_playouts``) and their valid masks."""
+    from alphazero_tpu_torch.games.splendor import env as E
+    cfg = E.SplendorConfig(num_players=num_players)
+    s = _env_step_playouts(num_players, g, boards=256,
+                           per_ply=n // len(ENV_STEP_KEEP))
+    return s, E.valid_moves(cfg, s, 0)
+
+
+def _pick(states, valids, B, g):
+    import torch
+    i = torch.randperm(states.shape[0], generator=g,
+                       device="cuda")[:B]
+    return states[i], valids[i]
+
+
+def _check_graphed(net, states, valids, g, batches, what):
+    """At each batch size, three calls of the evaluator (eager, captured,
+    replayed) on other boards each, every output held to
+    ``apply_inference`` bit for bit, the SDIFF head's too (read from the
+    graph after its replay).  Returns the calls checked."""
+    import torch
+    from alphazero_tpu_torch.games.splendor import adapter as A
+    from alphazero_tpu_torch.models import splendor_net as N
+    eval_fn, calls = A.make_eval_fn(net.cfg), 0
+    for B in batches:
+        for _ in range(3):
+            b, m = _pick(states, valids, B, g)
+            probs, v = eval_fn(net, b, m)
+            want = N.apply_inference(net, b.to(torch.float32), m)
+            if not (torch.equal(probs, want[0]) and torch.equal(v, want[1])):
+                raise AssertionError(f"{what}, B={B}: the graphed evaluator "
+                                     f"differs from apply_inference")
+            calls += 1
+        if not torch.equal(_graph_at(net, B).out[2], want[2]):
+            raise AssertionError(f"{what}, B={B}: the graph's log_sdiff "
+                                 f"differs from apply_inference's")
+    return calls
+
+
+def _device_kernels(fn, pads=16, tries=8):
+    """Kernels (not copies or memsets) the profiler saw in one call of
+    ``fn``.  The profiler may lose a window's first records (see
+    ``_device_ms``), so each window opens with ``pads`` spin kernels; a
+    window that kept all of them counts, and the count is the most of two
+    such windows (of ``tries`` at most)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    kept = []
+    for _ in range(tries):
+        _sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(pads):
+                torch.cuda._sleep(100)
+            fn()
+            _sync()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not e.name.startswith(("Memcpy", "Memset"))]
+        spins = sum("spin_kernel" in n for n in names)
+        if spins == pads:
+            kept.append(len(names) - spins)
+            if len(kept) == 2:
+                return max(kept)
+    raise AssertionError(f"the profiler kept every pad kernel in "
+                         f"{len(kept)} of {tries} windows")
+
+
+def _host_us(fn, calls=200):
+    """Host µs per call of ``fn`` in a loop of ``calls``, synchronized at
+    the end only (what a search's loop pays)."""
+    for _ in range(3):
+        fn()
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    _sync()
+    return (time.perf_counter() - t0) * 1e6 / calls
+
+
+def _recorded_results(search, log):
+    def run(params, roots, generator=None, noise_gamma=None):
+        res = search(params, roots, generator=generator,
+                     noise_gamma=noise_gamma)
+        log.append(res)
+        return res
+    return run
+
+
+def _same_results(got, want, what):
+    if len(got) != len(want) or not got:
+        raise AssertionError(f"{what}: {len(got)} searches against "
+                             f"{len(want)}")
+    import torch
+    for k, (a, b) in enumerate(zip(got, want)):
+        for f in ("counts", "raw_counts", "q", "root_prior", "root_value"):
+            if not torch.equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"{what}: search {k}'s {f} differs "
+                                     f"from the eager evaluator's")
+
+
+def phase_graphs():
+    """The graphed leaf evaluator (``splendor_net.infer``) on the card:
+    bit for bit against ``apply_inference`` at every batch of
+    ``GRAPH_BATCHES`` with r6's net (float32 and bf16 trunk) and r12's
+    4-player net, after an in-place Adam step, and with two nets in turns;
+    a search's root values unchanged by later replays; self-play plies and
+    B=1 searches equal to searches over an eager evaluator; the replay's
+    kernels equal to the eager forward's in a trace; host µs per
+    evaluation, eager and graphed."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from alphazero_tpu_torch.games.splendor import adapter as A
+    from alphazero_tpu_torch.games.splendor import env as E
+    from alphazero_tpu_torch.models import splendor_net as N
+    from alphazero_tpu_torch.search import mcts as M
+    from alphazero_tpu_torch.train import selfplay as SP
+    from alphazero_tpu_torch.utils import checkpoint as C
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(16)
+    cfg2, cfg4 = (E.SplendorConfig(num_players=p) for p in (2, 4))
+    s2, v2 = _graph_inputs(2, g)
+    s4, v4 = _graph_inputs(4, g)
+    r12 = C.load_net(os.path.join(ROOT, "runs", "r12_4p", "best.pt"), cfg4,
+                     "cuda")[0]
+    out = {"checked_calls": 0}
+    for what, net, s, v in (("r6", _r6_net(cfg2, "cuda"), s2, v2),
+                            ("r6 bf16", _r6_net(cfg2, "cuda", "bfloat16"),
+                             s2, v2),
+                            ("r12", r12, s4, v4)):
+        out["checked_calls"] += _check_graphed(net, s, v, g, GRAPH_BATCHES,
+                                               what)
+
+    # an in-place Adam step keeps the graphs, which read the new weights
+    net, other = _r6_net(cfg2, "cuda"), _r6_net(cfg2, "cuda")
+    out["checked_calls"] += _check_graphed(net, s2, v2, g, (77, 179),
+                                           "r6 before Adam")
+    graphs = dict(N._GRAPHS[net].graphs)
+    b, m = _pick(s2, v2, 64, g)
+    opt = torch.optim.Adam(net.parameters(), lr=1e-3)
+    (log_pi, val, _), _ = N.apply_train(
+        net, b.to(torch.float32), m, torch.Generator(device="cuda")
+        .manual_seed(0))
+    (val.square().sum() - torch.where(m, log_pi, 0.0).sum()).backward()
+    opt.step()
+    moved = not torch.equal(net.dense_0.weight, other.dense_0.weight)
+    eval_fn = A.make_eval_fn(net.cfg)
+    for B in (77, 179):
+        for _ in range(2):
+            b, m = _pick(s2, v2, B, g)
+            probs, val = eval_fn(net, b, m)
+            want = N.apply_inference(net, b.to(torch.float32), m)
+            if not (torch.equal(probs, want[0])
+                    and torch.equal(val, want[1])):
+                raise AssertionError(f"B={B}: the graphed evaluator differs "
+                                     f"from apply_inference after Adam")
+            out["checked_calls"] += 1
+    if not moved or dict(N._GRAPHS[net].graphs) != graphs:
+        raise AssertionError("the Adam step moved no weight, or the graphs "
+                             "were captured again")
+    # two nets in turns, each held to its own eager forward
+    for k in range(8):
+        B = (77, 1)[k % 2]
+        for n_ in (net, other):
+            b, m = _pick(s2, v2, B, g)
+            probs, val = eval_fn(n_, b, m)
+            want = N.apply_inference(n_, b.to(torch.float32), m)
+            if not (torch.equal(probs, want[0])
+                    and torch.equal(val, want[1])):
+                raise AssertionError(f"two nets in turns, B={B}: the "
+                                     f"graphed evaluator differs")
+            out["checked_calls"] += 1
+
+    # a search's root values outlive later replays
+    mcfg = M.MCTSConfig(num_sims=16)
+    search = M.build_search(mcfg, 2, eval_fn, A.make_search_step_fn(cfg2),
+                            A.make_valid_fn(cfg2), device="cuda")
+    roots, _ = _pick(s2, v2, 77, g)
+    first = search(other, roots)
+    kept = first.root_value.clone()
+    search(other, _pick(s2, v2, 77, g)[0])
+    want = N.apply_inference(other, roots.to(torch.float32),
+                             E.valid_moves(cfg2, roots, 0))[1]
+    if not (torch.equal(first.root_value, kept)
+            and torch.equal(kept, want)):
+        raise AssertionError("a search's root values changed after later "
+                             "replays")
+
+    # self-play plies and B=1 searches: graphed against eager
+    r6 = _r6_net(cfg2, "cuda")
+    logs = {}
+    for name, fn in (("graphed", A.make_eval_fn(r6.cfg)),
+                     ("eager", _eager_eval_fn)):
+        sp = SP.SelfPlayConfig(batch_size=256, num_sims=128, ratio_full=4,
+                               prob_full=0.3, forced_playouts=True,
+                               max_moves=3, chunk_moves=3)
+        eng = SP.SelfPlayEngine(cfg2, fn, sp, device="cuda")
+        logs[name] = log = []
+        eng.search_full = _recorded_results(eng.search_full, log)
+        eng.search_fast = _recorded_results(eng.search_fast, log)
+        it, _ = eng.run_games(r6, torch.Generator(device="cuda")
+                              .manual_seed(3))
+        logs[name + " examples"] = it
+    _same_results(logs["graphed"], logs["eager"], "self-play")
+    for f in dataclasses.fields(logs["graphed examples"]):
+        if not np.array_equal(getattr(logs["graphed examples"], f.name),
+                              getattr(logs["eager examples"], f.name)):
+            raise AssertionError(f"self-play examples' {f.name} differ")
+    b1 = {}
+    for name, fn in (("graphed", A.make_eval_fn(r12.cfg)),
+                     ("eager", _eager_eval_fn)):
+        search = M.build_search(M.MCTSConfig(num_sims=128, fpu=0.3), 4, fn,
+                                A.make_search_step_fn(cfg4),
+                                A.make_valid_fn(cfg4), device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        b1[name] = [search(r12, s4[k:k + 1], generator=gen)
+                    for k in range(0, 64, 8)]
+    _same_results(b1["graphed"], b1["eager"], "B=1 searches")
+
+    # the replay runs the eager forward's kernels; the evaluator adds
+    # the copies in and out
+    kernels, host_us = {}, {}
+    graphed_fn = A.make_eval_fn(r6.cfg)
+    for B in (1, 77, 179, 256):
+        b, m = _pick(s2, v2, B, g)
+        for _ in range(2):                  # captured, if it was not
+            graphed_fn(r6, b, m)
+        graph = _graph_at(r6, B)
+        x = b.to(torch.float32)
+        eager = _device_kernels(lambda: N._forward(r6, x, m))
+        replay = _device_kernels(graph.graph.replay)
+        whole = _device_kernels(lambda: graphed_fn(r6, b, m))
+        if replay != eager or replay == 0:
+            raise AssertionError(f"B={B}: the traced replay ran {replay} "
+                                 f"kernels, the eager forward {eager}")
+        kernels[B] = {"eager_forward": eager, "replay": replay,
+                      "graphed_evaluation": whole,
+                      "eager_evaluation": _device_kernels(
+                          lambda: _eager_eval_fn(r6, b, m))}
+        host_us[B] = {
+            "eager": _host_us(lambda: _eager_eval_fn(r6, b, m)),
+            "graphed": _host_us(lambda: graphed_fn(r6, b, m))}
+    out.update(kernels=kernels, host_us_per_evaluation=host_us,
+               seconds=time.perf_counter() - t0)
+    print(f"graphs: {out['checked_calls']} evaluations bit-equal to "
+          f"apply_inference; kernels {kernels}; host µs per evaluation "
+          f"{host_us}; {out['seconds']:.0f} s", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the full record to this "
@@ -3156,6 +3436,7 @@ def main(argv=None) -> int:
     bf16 = phase_bf16()
     reuse = phase_reuse()
     reference = phase_reference()
+    graphs = phase_graphs()
     train = phase_train(examples)
     with tempfile.TemporaryDirectory() as keep:
         coach = phase_coach(keep)
@@ -3235,7 +3516,8 @@ def main(argv=None) -> int:
               "search": search, "selfplay": selfplay, "bench": bench,
               "bf16": bf16,
               "reuse": reuse,
-              "reference": reference, "train": train, "coach": coach,
+              "reference": reference, "graphs": graphs,
+              "train": train, "coach": coach,
               "pit": pit, "export": export, "distributed": distributed,
               "tooling": tooling, "profiler_short": PROFILER_SHORT,
               "torch": torch.__version__, "cuda": torch.version.cuda}

@@ -1,0 +1,8 @@
+"""Share of the traced B=1 requests' leaf evaluations that replayed a CUDA
+graph of the net (``_graphs.graph_share``)."""
+
+from h100bench.metrics import _graphs as G
+
+
+def read(data):
+    return G.graph_share(data)
