@@ -55,10 +55,17 @@ class _Inference(torch.nn.Module):
         return torch.exp(log_pi), v, log_sd
 
 
+def _refuse_bt4(meta: dict):
+    if int(meta.get("nn_version", 1)) == 3:
+        raise ValueError("nn_version 3 (the BT4 transformer) is not "
+                         "exported: export versions 0, 1 and 2 only")
+
+
 def _load(checkpoint_path: str, num_players: int, device):
     """``(net, env_cfg)`` of a checkpoint, the net's shape from its meta."""
     env_cfg = E.SplendorConfig(num_players=num_players)
-    net, _ = CKPT.load_net(checkpoint_path, env_cfg, device)
+    net, meta = CKPT.load_net(checkpoint_path, env_cfg, device)
+    _refuse_bt4(meta)
     return net.eval(), env_cfg
 
 
@@ -103,6 +110,7 @@ def export_onnx_checkpoint(checkpoint_path: str, out_path: str,
     ckpt = CKPT.load_checkpoint(os.path.dirname(checkpoint_path) or ".",
                                 os.path.basename(checkpoint_path))
     meta = ckpt.get("meta", {})
+    _refuse_bt4(meta if nn_version is None else {"nn_version": nn_version})
     env_cfg = E.SplendorConfig(
         num_players=int(meta.get("num_players", num_players)))
     net_cfg = A.net_config_for(

@@ -196,6 +196,9 @@ def export_onnx(net_cfg, params, batch_stats, path: str) -> str:
     ``valid_actions`` (batch, A) -> ``pi`` (masked log-softmax), ``v``
     (tanh), ``scdiffs`` (log-softmax over (batch, num_scdiffs, 31))."""
     c = net_cfg
+    if c.nn_version == 3:
+        raise ValueError("nn_version 3 (the BT4 transformer) has no ONNX "
+                         "graph: export versions 0, 1 and 2 only")
     g = _Graph()
     P, BS = params, batch_stats
     w = c.width if c.nn_version != 2 else max(c.width, 256)

@@ -119,6 +119,10 @@ def load_as_bundle(path: str, net_cfg: N.NetConfig):
     size changes by min-size slicing); what the reference does not give
     comes from ``init_params`` at seed 0.
     ``meta`` holds the checkpoint's training arguments."""
+    if net_cfg.nn_version == 3:
+        raise ValueError("nn_version 3 (the BT4 transformer): the "
+                         "reference's SplendorNNet has no such net to "
+                         "import from")
     ckpt = torch_load_tolerant(path)
     sd = ckpt["state_dict"]
     target = N.build_net(net_cfg, "cpu").state_dict()

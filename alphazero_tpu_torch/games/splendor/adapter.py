@@ -16,7 +16,12 @@ from . import env as E
 
 def net_config_for(cfg: E.SplendorConfig, dropout: float = 0.3,
                    nn_version: int = 1, width: int = 128,
-                   dtype: str = "float32") -> N.NetConfig:
+                   dtype: str = "float32", layers: int = N.NetConfig.layers,
+                   heads: int = N.NetConfig.heads, ffn: int = N.NetConfig.ffn,
+                   smolgen: tuple[int, int, int] = N.NetConfig.smolgen,
+                   ) -> N.NetConfig:
+    """The net's config for the env; ``layers``, ``heads``, ``ffn`` and
+    ``smolgen`` are version 3's sizes (``NetConfig``'s)."""
     return N.NetConfig(
         nb_vect=cfg.rows,
         vect_dim=7,
@@ -27,6 +32,10 @@ def net_config_for(cfg: E.SplendorConfig, dropout: float = 0.3,
         nn_version=nn_version,
         width=width,
         dtype=dtype,
+        layers=layers,
+        heads=heads,
+        ffn=ffn,
+        smolgen=smolgen,
     )
 
 

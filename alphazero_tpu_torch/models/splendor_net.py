@@ -4,8 +4,11 @@ Port of ``alphazero_tpu/models/splendor_net.py``: ``SplendorNet``
 (versions 0 and 1: a global-pooling MLP trunk) and ``SplendorNetV2``
 (version 2: a wider trunk with pre-activation residual MLP blocks after the
 flatten), each with a masked log-softmax policy, a per-player tanh value
-and a 31-bin score-diff distribution per seat.  Layouts follow the Flax
-modules, so ``from_flax`` and ``to_flax`` carry parameters over one to one:
+and a 31-bin score-diff distribution per seat.  Version 3,
+``SplendorNetBT4``, is the port's own: Leela Chess Zero's BT4 encoder
+transformer over the board's rows (no JAX counterpart).  Layouts follow
+the Flax modules, so ``from_flax`` and ``to_flax`` carry parameters over
+one to one:
 
 - a Flax ``Dense`` kernel is ``(in, out)``; ``nn.Linear`` stores ``(out,
   in)``, so the kernel is transposed;
@@ -13,6 +16,9 @@ modules, so ``from_flax`` and ``to_flax`` carry parameters over one to one:
   ``Dense_k`` / ``BatchNorm_k`` / ``DenseAndPartialGPool_k`` (Flax numbers
   each kind in creation order); a pool's own ``dense`` and ``bn`` are its
   ``Dense_0`` and ``BatchNorm_0``;
+- version 3's modules take the same rule: ``ln_k`` / ``gate_k`` /
+  ``enc_k`` are ``LayerNorm_k`` / ``Gating_k`` / ``EncoderLayer_k``, and a
+  layer's own ``dense_k`` / ``ln_k`` its ``Dense_k`` / ``LayerNorm_k``;
 - Flax ``BatchNorm(axis=1)`` on ``(B, 7, w)`` or ``(B, 1, F)`` normalizes
   over dim 1, and ``BatchNorm()`` on ``(B, w)`` over the last dim, as
   ``BatchNorm1d`` does with those inputs.
@@ -32,6 +38,9 @@ pooling, ReLU, dropout and the residual adds run in bf16, a mean as a
 float32 mean rounded once.  The trunk's output returns to float32 before
 the heads.  Parameters and running statistics stay float32 in either
 dtype, so ``from_flax`` / ``to_flax`` and checkpoints are the same.
+Version 3 keeps the same rules: its LayerNorms compute in float32 and
+return bf16, and its attention is ``F.scaled_dot_product_attention`` with
+the smolgen bias as the bf16 additive mask.
 """
 
 from __future__ import annotations
@@ -68,6 +77,12 @@ class NetConfig:
     nn_version: int = 1
     width: int = 128
     dtype: str = "float32"
+    # version 3 (BT4) only: encoder layers, attention heads, FFN width and
+    # smolgen's (compressed channels per token, hidden, generator) sizes
+    layers: int = 15
+    heads: int = 32
+    ffn: int = 1536
+    smolgen: tuple[int, int, int] = (32, 256, 256)
 
     @property
     def num_scdiffs(self) -> int:
@@ -92,8 +107,18 @@ def _dense(lin: nn.Linear, x):
     then the bias added in bf16."""
     if x.dtype == torch.float32:
         return lin(x)
-    return (torch.matmul(x, lin.weight.to(x.dtype).t())
-            + lin.bias.to(x.dtype))
+    y = torch.matmul(x, lin.weight.to(x.dtype).t())
+    return y if lin.bias is None else y + lin.bias.to(x.dtype)
+
+
+def _layer_norm(ln: nn.LayerNorm, x):
+    """``ln`` at the input's dtype: a bf16 input's statistics and
+    normalization computed in float32 inside PyTorch's layer norm, its scale
+    and bias cast to bf16, the result returned as bf16."""
+    if x.dtype == torch.float32:
+        return ln(x)
+    return F.layer_norm(x, ln.normalized_shape, ln.weight.to(x.dtype),
+                        ln.bias.to(x.dtype), ln.eps)
 
 
 class FlaxBatchNorm(nn.BatchNorm1d):
@@ -329,15 +354,125 @@ class SplendorNetV2(_Net):
         return self._head_outputs(x.float(), valid_actions)
 
 
+LN_EPS = 1e-3                   # every LayerNorm of version 3
+
+
+class Gating(nn.Module):
+    """Lc0's input gating: a learned multiply and add per (token,
+    channel)."""
+
+    def __init__(self, tokens: int, channels: int):
+        super().__init__()
+        self.mul = nn.Parameter(torch.ones(tokens, channels))
+        self.add = nn.Parameter(torch.zeros(tokens, channels))
+
+    def reset_parameters(self):
+        nn.init.ones_(self.mul)
+        nn.init.zeros_(self.add)
+
+    def forward(self, x):
+        return x * self.mul.to(x.dtype) + self.add.to(x.dtype)
+
+
+class EncoderLayer(nn.Module):
+    """One BT4 encoder layer: smolgen's attention bias from the layer's
+    input, multi-head attention with that bias, then the Mish FFN, each
+    added to ``alpha`` times its input and normalized after (post-LN with
+    DeepNorm's scaling).  ``dense_0`` is Q, K and V in one (head ``h`` of
+    each is its columns ``h*dh..(h+1)*dh``), ``dense_1`` the output,
+    ``dense_2`` / ``dense_3`` the FFN, ``dense_4`` smolgen's compression
+    (no bias), ``dense_5`` / ``dense_6`` its hidden and generator-input
+    layers; ``ln_0`` / ``ln_1`` follow the attention and the FFN, ``ln_2``
+    / ``ln_3`` smolgen's two layers.  A residual ``alpha * x + y`` is one
+    add in the trunk's dtype."""
+
+    def __init__(self, cfg: NetConfig):
+        super().__init__()
+        d, T = cfg.width, cfg.nb_vect
+        comp, hidden, gen = cfg.smolgen
+        self.heads, self.gen = cfg.heads, gen
+        self.alpha = (2.0 * cfg.layers) ** 0.25
+        self.dense_0 = nn.Linear(d, 3 * d)
+        self.dense_1 = nn.Linear(d, d)
+        self.dense_2 = nn.Linear(d, cfg.ffn)
+        self.dense_3 = nn.Linear(cfg.ffn, d)
+        self.dense_4 = nn.Linear(d, comp, bias=False)
+        self.dense_5 = nn.Linear(T * comp, hidden)
+        self.dense_6 = nn.Linear(hidden, cfg.heads * gen)
+        self.ln_0 = nn.LayerNorm(d, eps=LN_EPS)
+        self.ln_1 = nn.LayerNorm(d, eps=LN_EPS)
+        self.ln_2 = nn.LayerNorm(hidden, eps=LN_EPS)
+        self.ln_3 = nn.LayerNorm(cfg.heads * gen, eps=LN_EPS)
+
+    def smolgen(self, x, generator: nn.Linear):
+        """The attention bias ``[B, H, T, T]`` from the layer's input ``x
+        [B, T, d]``, through the generator all layers share."""
+        B, T, _ = x.shape
+        c = _dense(self.dense_4, x).reshape(B, -1)
+        h = _layer_norm(self.ln_2, F.silu(_dense(self.dense_5, c)))
+        g = _layer_norm(self.ln_3, F.silu(_dense(self.dense_6, h)))
+        return _dense(generator, g.reshape(B, self.heads, self.gen)) \
+            .reshape(B, self.heads, T, T)
+
+    def forward(self, x, generator: nn.Linear, drop):
+        B, T, d = x.shape
+        H = self.heads
+        qkv = _dense(self.dense_0, x).reshape(B, T, 3, H, d // H)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)                 # [B, H, T, dh]
+        att = F.scaled_dot_product_attention(
+            q, k, v, attn_mask=self.smolgen(x, generator))
+        att = _dense(self.dense_1, att.transpose(1, 2).reshape(B, T, d))
+        x = _layer_norm(self.ln_0, torch.add(drop(att), x, alpha=self.alpha))
+        f = _dense(self.dense_3, F.mish(_dense(self.dense_2, x)))
+        return _layer_norm(self.ln_1, torch.add(drop(f), x, alpha=self.alpha))
+
+
+class SplendorNetBT4(_Net):
+    """nn_version 3: Leela Chess Zero's BT4 encoder transformer (lczero-
+    training, ``tf/tfprocess.py``: ``encoder_layer``, ``smolgen_weights``)
+    with each of the board's ``nb_vect`` rows as a token.  A row's 7
+    features go through ``dense_0`` (7 -> width) and Mish, then the gating
+    ``gate_0``; ``cfg.layers`` encoder layers ``enc_k`` follow, whose
+    smolgen biases share one generator ``dense_1`` (gen -> T*T, no bias);
+    the three heads ``dense_2..dense_7`` read the mean over tokens.  Two
+    departures from Lc0: the heads (Splendor's actions are no row pairs,
+    so Lc0's attention policy has nothing to map), and the port's
+    ``init_params`` in place of DeepNorm's scaled Xavier init."""
+
+    def __init__(self, cfg: NetConfig):
+        super().__init__(cfg, (3,))
+        d, T = cfg.width, cfg.nb_vect
+        if d % cfg.heads:
+            raise ValueError(f"width {d} is not a multiple of heads "
+                             f"{cfg.heads}")
+        self.dense_0 = nn.Linear(cfg.vect_dim, d)
+        self.dense_1 = nn.Linear(cfg.smolgen[2], T * T, bias=False)
+        self.gate_0 = Gating(T, d)
+        for k in range(cfg.layers):
+            setattr(self, f"enc_{k}", EncoderLayer(cfg))
+        self._add_heads(d, 2)
+
+    def forward(self, boards, valid_actions, generator=None):
+        """Same contract as ``SplendorNet.forward``."""
+        def drop(y):
+            return self._drop(y, generator)
+        x = self.gate_0(F.mish(_dense(self.dense_0, boards.to(self.dt))))
+        for k in range(self.cfg.layers):
+            x = getattr(self, f"enc_{k}")(x, self.dense_1, drop)
+        return self._head_outputs(_mean(x, 1).float(), valid_actions)
+
+
 # nn_version registry: versions 0 and 1 share the reference layer stack (the
 # eras differ by action-space size, which lives in cfg.action_size)
-NET_VERSIONS = {0: SplendorNet, 1: SplendorNet, 2: SplendorNetV2}
+NET_VERSIONS = {0: SplendorNet, 1: SplendorNet, 2: SplendorNetV2,
+                3: SplendorNetBT4}
 
 
 def init_params(net: nn.Module, generator: torch.Generator | None = None):
     """Flax's initializers, in place: ``kaiming_uniform`` kernels (variance
-    scaling 2.0, fan_in, uniform: U(-sqrt(6/in), sqrt(6/in))), zero biases,
-    BatchNorm scale 1 and bias 0, running mean 0 and variance 1.  Returns
+    scaling 2.0, fan_in, uniform: U(-sqrt(6/in), sqrt(6/in))), zero biases
+    (where a Dense has one), BatchNorm and LayerNorm scale 1 and bias 0,
+    running mean 0 and variance 1, gating multiply 1 and add 0.  Returns
     ``net``."""
     with torch.no_grad():
         for m in net.modules():
@@ -346,8 +481,9 @@ def init_params(net: nn.Module, generator: torch.Generator | None = None):
                 w = torch.empty(m.weight.shape, dtype=m.weight.dtype)
                 w.uniform_(-lim, lim, generator=generator)
                 m.weight.copy_(w)
-                m.bias.zero_()
-            elif isinstance(m, FlaxBatchNorm):
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, (FlaxBatchNorm, nn.LayerNorm, Gating)):
                 m.reset_parameters()
     return net
 
@@ -499,7 +635,10 @@ def infer(net: nn.Module, boards, valid_actions):
     the net in eval mode.  On CPU tensors it is ``apply_inference``; on
     CUDA tensors the forward is replayed from a CUDA graph of the net at
     that shape (``_graphed``), equal to the eager call bit for bit, and
-    the outputs are the caller's own."""
+    the outputs are the caller's own.  Counts ``net.boards`` and
+    ``net.tokens`` (boards x rows) while a profiler records."""
+    profiling.count("net.boards", boards.shape[0])
+    profiling.count("net.tokens", boards.shape[0] * boards.shape[1])
     if not boards.is_cuda:
         probs, v, _ = apply_inference(net, boards.to(torch.float32),
                                       valid_actions)
@@ -530,29 +669,63 @@ def count_params(net: nn.Module) -> int:
 
 
 # ---------------------------------------------------------------- Flax layout
-_KINDS = {"dense": "Dense", "bn": "BatchNorm", "gpool": "DenseAndPartialGPool"}
+_KINDS = {"dense": "Dense", "bn": "BatchNorm", "gpool": "DenseAndPartialGPool",
+          "ln": "LayerNorm", "gate": "Gating", "enc": "EncoderLayer"}
 _KINDS_INV = {v: k for k, v in _KINDS.items()}
+# a pool's own modules carry no number
 _INNER = {"dense": "Dense_0", "bn": "BatchNorm_0"}
 _INNER_INV = {v: k for k, v in _INNER.items()}
 # state_dict leaf -> (Flax collection, leaf name); "weight" is a Dense
-# "kernel" or a BatchNorm "scale"
+# "kernel" or a norm's "scale"
 _LEAVES = {"bias": ("params", "bias"),
+           "mul": ("params", "mul"), "add": ("params", "add"),
            "running_mean": ("batch_stats", "mean"),
            "running_var": ("batch_stats", "var")}
 
 
+def _flax_name(name: str) -> str:
+    kind, k = name.rsplit("_", 1)
+    return f"{_KINDS[kind]}_{k}"
+
+
+def _port_name(name: str) -> str:
+    kind, k = name.rsplit("_", 1)
+    return f"{_KINDS_INV[kind]}_{k}"
+
+
 def _flax_module(module: str) -> tuple[str, ...]:
     """Port module path -> Flax module path ("gpool_1.bn" ->
-    ("DenseAndPartialGPool_1", "BatchNorm_0"))."""
+    ("DenseAndPartialGPool_1", "BatchNorm_0"), "enc_3.ln_1" ->
+    ("EncoderLayer_3", "LayerNorm_1"))."""
     head, *inner = module.split(".")
-    kind, k = head.rsplit("_", 1)
-    return (f"{_KINDS[kind]}_{k}",) + tuple(_INNER[i] for i in inner)
+    return (_flax_name(head),) + tuple(_INNER.get(i) or _flax_name(i)
+                                       for i in inner)
 
 
 def _port_module(path: tuple[str, ...]) -> str:
-    kind, k = path[0].rsplit("_", 1)
-    return ".".join([f"{_KINDS_INV[kind]}_{k}"]
-                    + [_INNER_INV[p] for p in path[1:]])
+    head = _port_name(path[0])
+    pool = head.startswith("gpool_")
+    return ".".join([head] + [_INNER_INV[p] if pool else _port_name(p)
+                              for p in path[1:]])
+
+
+def bt4_dims(params) -> dict:
+    """``NetConfig``'s version-3 sizes (``width``, ``layers``, ``heads``,
+    ``ffn``, ``smolgen``) read from the shapes of a Flax-layout ``params``
+    tree, which a checkpoint's meta does not carry."""
+    def shape(*path):
+        node = params
+        for p in path:
+            node = node[p]
+        return np.shape(node["kernel"])
+    layers = sum(1 for k in params if k.startswith("EncoderLayer_"))
+    enc = "EncoderLayer_0"
+    gen = shape("Dense_1")[0]
+    return {"width": shape("Dense_0")[1], "layers": layers,
+            "heads": shape(enc, "Dense_6")[1] // gen,
+            "ffn": shape(enc, "Dense_2")[1],
+            "smolgen": (shape(enc, "Dense_4")[1], shape(enc, "Dense_5")[1],
+                        gen)}
 
 
 def from_flax(params, batch_stats) -> dict[str, torch.Tensor]:

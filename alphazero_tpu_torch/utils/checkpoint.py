@@ -100,15 +100,17 @@ def load_net(path: str, env_cfg, device):
     """``(net, meta)`` of the checkpoint file at ``path``: a
     ``SplendorNet`` for ``env_cfg`` on ``device`` holding its weights; the
     net's version and width come from the meta (v1, width 128 without
-    them)."""
+    them), version 3's sizes from its parameters' shapes."""
     from ..games.splendor import adapter as A
     from ..models import splendor_net as N
     ckpt = load_checkpoint(os.path.dirname(path) or ".",
                            os.path.basename(path))
     meta = ckpt.get("meta", {})
-    net = N.build_net(A.net_config_for(
-        env_cfg, nn_version=int(meta.get("nn_version", 1)),
-        width=int(meta.get("net_width", 128))), device)
+    version = int(meta.get("nn_version", 1))
+    dims = ({"width": int(meta.get("net_width", 128))} if version != 3
+            else N.bt4_dims(ckpt["params"]))
+    net = N.build_net(A.net_config_for(env_cfg, nn_version=version, **dims),
+                      device)
     net.load_state_dict(N.from_flax(ckpt["params"], ckpt["batch_stats"]))
     return net, meta
 

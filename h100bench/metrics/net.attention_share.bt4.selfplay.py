@@ -1,0 +1,9 @@
+"""Share of the traced BT4 self-play slice's busy device time in the
+attention kernels of ``F.scaled_dot_product_attention``
+(``_bt4.ATTENTION``)."""
+
+from h100bench.metrics import _bt4
+
+
+def read(data):
+    return _bt4.busy_share(data, _bt4.is_attention)
