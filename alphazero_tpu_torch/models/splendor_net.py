@@ -38,9 +38,14 @@ pooling, ReLU, dropout and the residual adds run in bf16, a mean as a
 float32 mean rounded once.  The trunk's output returns to float32 before
 the heads.  Parameters and running statistics stay float32 in either
 dtype, so ``from_flax`` / ``to_flax`` and checkpoints are the same.
-Version 3 keeps the same rules: its LayerNorms compute in float32 and
-return bf16, and its attention is ``F.scaled_dot_product_attention`` with
-the smolgen bias as the bf16 additive mask.
+Version 3 has no JAX counterpart to match and a Dense rule of its own
+(``_dense_once``): the product and the bias in one ``F.linear``, the bias
+added to the float32 accumulator and the sum rounded to bf16 once, as XLA
+and cuBLASLt do when they fuse a bias into a bf16 GEMM (on the card one
+GEMM with the bias in its epilogue).  Its other rules are those above: its
+LayerNorms compute in float32 and return bf16, and its attention is
+``F.scaled_dot_product_attention`` with the smolgen bias as the bf16
+additive mask.
 """
 
 from __future__ import annotations
@@ -109,6 +114,17 @@ def _dense(lin: nn.Linear, x):
         return lin(x)
     y = torch.matmul(x, lin.weight.to(x.dtype).t())
     return y if lin.bias is None else y + lin.bias.to(x.dtype)
+
+
+def _dense_once(lin: nn.Linear, x):
+    """Version 3's Dense at the input's dtype: ``F.linear`` with the kernel
+    and bias cast to it (no-op casts in float32, where this is ``lin(x)``).
+    In bf16 the bias is added to the product's float32 accumulator and the
+    sum rounded once; a contiguous input with a 1-D bias reaches ``addmm``,
+    which on the card is cuBLASLt's GEMM with the bias in its epilogue."""
+    b = lin.bias
+    return F.linear(x, lin.weight.to(x.dtype),
+                    None if b is None else b.to(x.dtype))
 
 
 def _layer_norm(ln: nn.LayerNorm, x):
@@ -408,22 +424,22 @@ class EncoderLayer(nn.Module):
         """The attention bias ``[B, H, T, T]`` from the layer's input ``x
         [B, T, d]``, through the generator all layers share."""
         B, T, _ = x.shape
-        c = _dense(self.dense_4, x).reshape(B, -1)
-        h = _layer_norm(self.ln_2, F.silu(_dense(self.dense_5, c)))
-        g = _layer_norm(self.ln_3, F.silu(_dense(self.dense_6, h)))
-        return _dense(generator, g.reshape(B, self.heads, self.gen)) \
+        c = _dense_once(self.dense_4, x).reshape(B, -1)
+        h = _layer_norm(self.ln_2, F.silu(_dense_once(self.dense_5, c)))
+        g = _layer_norm(self.ln_3, F.silu(_dense_once(self.dense_6, h)))
+        return _dense_once(generator, g.reshape(B, self.heads, self.gen)) \
             .reshape(B, self.heads, T, T)
 
     def forward(self, x, generator: nn.Linear, drop):
         B, T, d = x.shape
         H = self.heads
-        qkv = _dense(self.dense_0, x).reshape(B, T, 3, H, d // H)
+        qkv = _dense_once(self.dense_0, x).reshape(B, T, 3, H, d // H)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)                 # [B, H, T, dh]
         att = F.scaled_dot_product_attention(
             q, k, v, attn_mask=self.smolgen(x, generator))
-        att = _dense(self.dense_1, att.transpose(1, 2).reshape(B, T, d))
+        att = _dense_once(self.dense_1, att.transpose(1, 2).reshape(B, T, d))
         x = _layer_norm(self.ln_0, torch.add(drop(att), x, alpha=self.alpha))
-        f = _dense(self.dense_3, F.mish(_dense(self.dense_2, x)))
+        f = _dense_once(self.dense_3, F.mish(_dense_once(self.dense_2, x)))
         return _layer_norm(self.ln_1, torch.add(drop(f), x, alpha=self.alpha))
 
 
@@ -456,7 +472,7 @@ class SplendorNetBT4(_Net):
         """Same contract as ``SplendorNet.forward``."""
         def drop(y):
             return self._drop(y, generator)
-        x = self.gate_0(F.mish(_dense(self.dense_0, boards.to(self.dt))))
+        x = self.gate_0(F.mish(_dense_once(self.dense_0, boards.to(self.dt))))
         for k in range(self.cfg.layers):
             x = getattr(self, f"enc_{k}")(x, self.dense_1, drop)
         return self._head_outputs(_mean(x, 1).float(), valid_actions)

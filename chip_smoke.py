@@ -61,7 +61,11 @@ Phases (each raises on failure):
    an in-place Adam step and with two nets in turns, a search's root
    values unchanged by later replays, self-play plies and B=1 searches
    equal to those over an eager evaluator, the traced replay's kernels
-   equal to the eager forward's, host µs per evaluation;
+   equal to the eager forward's, host µs per evaluation; then the BT4
+   cell's bf16 net (``phase_bt4_dense``) at B = 77, 179 and 256: graphed
+   bit for bit, each biased Dense of the trunk one GEMM with the bias in
+   its epilogue (the shapes where not), no separate bias add, kernels per
+   evaluation and device time by kind beside the two-rounding Dense rule;
 6. train: ``fit`` for one epoch of r6's ``TrainConfig`` (batch 64, lr 3e-4,
    augmentation on, dropout 0.3, one chunk of 64 steps) on the self-play
    phase's examples, from ``runs/r6/best.pt`` with its Adam moments: steps/s,
@@ -3406,6 +3410,214 @@ def phase_graphs():
     return out
 
 
+BT4_BATCHES = (77, 179, 256)       # the BT4 cell's leaf batches
+
+
+def _bt4_net():
+    """The BT4 cell's net on the card (width 1024, 15 layers, 32 heads, FFN
+    1536, smolgen 32 / 256 / 256, bf16 trunk, 2 players), every bias, norm
+    affine and gating drawn off its initial value from a seeded
+    generator."""
+    import torch
+    from alphazero_tpu_torch.games.splendor import adapter as A
+    from alphazero_tpu_torch.games.splendor import env as E
+    from alphazero_tpu_torch.models import splendor_net as N
+    cfg = A.net_config_for(E.SplendorConfig(num_players=2), nn_version=3,
+                           width=1024, dtype="bfloat16", dropout=0.0)
+    net = N.build_net(cfg, "cuda", torch.Generator().manual_seed(18))
+    g = torch.Generator(device="cuda").manual_seed(19)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith(("bias", "add")):
+                p.normal_(0.0, 0.2, generator=g)
+            elif p.dim() == 1 or name.endswith("mul"):
+                p.normal_(1.0, 0.2, generator=g)
+    return net
+
+
+@contextlib.contextmanager
+def _two_roundings():
+    """Version 3's Dense under the rule of versions 0-2 (``_dense``: the
+    product rounded to bf16, then the bias added by a broadcast add), the
+    rule the BT4 trunk ran before it had one of its own."""
+    from alphazero_tpu_torch.models import splendor_net as N
+    once = N._dense_once
+    N._dense_once = N._dense
+    try:
+        yield
+    finally:
+        N._dense_once = once
+
+
+def _op_kernels(fn):
+    """``(op, input shapes, [(kernel, µs), ...])`` for each op of one call
+    of ``fn`` that launched kernels itself (a profile with the ops' input
+    shapes; a kernel belongs to the innermost op that launched it)."""
+    from torch.profiler import ProfilerActivity, profile
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        _sync()
+    return [(e.name, e.input_shapes,
+             [(k.name, k.duration) for k in e.kernels])
+            for e in prof.events() if e.kernels]
+
+
+def _trunk_addmm(shapes, B):
+    """Whether an ``aten::addmm`` of these input shapes is a biased Dense of
+    the BT4 trunk at batch ``B`` (per token: M = 56 B; smolgen's per-board
+    ``dense_5`` / ``dense_6``: 1792 -> 256, 256 -> 8192); the heads' run
+    at M = B from width 1024."""
+    bias, (M, K), (_, Nn) = shapes[0], shapes[1], shapes[2]
+    return len(bias) == 1 and (M == 56 * B or (K, Nn) in ((1792, 256),
+                                                          (256, 8192)))
+
+
+def _kinds(rows):
+    """Device µs of one evaluation by kind: the bias adds (an ``aten::add``
+    with a 1-D operand), the attention output's transpose copy (a 4-D
+    ``aten::copy_``), the other copies and casts, GEMMs (under ``mm``,
+    ``addmm``, ``bmm``), attention, layer norms, the rest; and the
+    non-vectorized ``elementwise_kernel<128, 4, ...>`` by op and shapes."""
+    kinds, slow = {}, {}
+    for op, shapes, kernel, us in ((o, sh, k, us) for o, sh, ks in rows
+                                   for k, us in ks):
+        if op == "aten::add" and len(shapes) > 1 and len(shapes[1]) == 1:
+            kind = "bias add"
+        elif op == "aten::copy_" and len(shapes[0]) == 4:
+            kind = "transpose copy"
+        elif op == "aten::copy_":
+            kind = "cast or copy"
+        elif op in ("aten::mm", "aten::addmm", "aten::bmm"):
+            kind = "gemm"
+        elif "sdpa" in kernel or "attention" in op:
+            kind = "attention"
+        elif "layer_norm" in op:
+            kind = "layer norm"
+        else:
+            kind = "other"
+        kinds[kind] = kinds.get(kind, 0.0) + us
+        if "elementwise_kernel<128, 4" in kernel:
+            key = f"{op} {shapes}"
+            slow[key] = slow.get(key, 0.0) + us
+    return ({k: round(v, 1) for k, v in sorted(kinds.items())},
+            {k: round(v, 1) for k, v in sorted(slow.items(),
+                                               key=lambda kv: -kv[1])})
+
+
+def _replay_ms(graphs, reps=20, rounds=3):
+    """Device ms per replay of each graph of ``graphs`` (name -> graph),
+    timed with CUDA events over ``reps`` replays, the graphs in turns for
+    ``rounds`` rounds; the median of the rounds."""
+    import torch
+    times = {name: [] for name in graphs}
+    for _ in range(rounds):
+        for name, graph in graphs.items():
+            graph.replay()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            for _ in range(reps):
+                graph.replay()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end) / reps)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def phase_bt4_dense(check=True):
+    """Version 3's Dense on the card, at the BT4 cell's leaf batches: each
+    biased Dense of the trunk one GEMM with the bias in its epilogue.  For
+    the cell's net (``_bt4_net``) at each of ``BT4_BATCHES``: the graphed
+    evaluator bit for bit against ``apply_inference`` (``_check_graphed``),
+    the replay's kernels equal to the eager forward's; each trunk
+    ``aten::addmm`` and the kernels it launched (one GEMM where the bias
+    fused, cuBLASLt's memset of its workspace aside; the shapes where more
+    ran); kernels per evaluation under this
+    rule and under the two-rounding rule (``_two_roundings``), whose
+    difference is the Denses that fused; no bias add on its own; device
+    time by kind under both rules and each graph's replay in turns.  With
+    ``check`` it raises, after printing, where a check failed."""
+    import copy
+    import torch
+    from alphazero_tpu_torch.games.splendor import adapter as A
+    from alphazero_tpu_torch.models import splendor_net as N
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(18)
+    s2, v2 = _graph_inputs(2, g)
+    net = _bt4_net()
+    old = copy.deepcopy(net)
+    eval_fn = A.make_eval_fn(net.cfg)
+    failed = []
+    checked = _check_graphed(net, s2, v2, g, BT4_BATCHES, "BT4")
+    out = {"checked_calls": checked, "batches": {}}
+    for B in BT4_BATCHES:
+        b, m = _pick(s2, v2, B, g)
+        x = b.to(torch.float32)
+        with _two_roundings():
+            for _ in range(2):              # eager, then captured
+                eval_fn(old, b, m)
+            two = N.apply_inference(old, x, m)
+            k_two = _device_kernels(lambda: N._forward(old, x, m))
+            rows_two = _op_kernels(lambda: N._forward(old, x, m))
+        once = N.apply_inference(net, x, m)
+        k_once = _device_kernels(lambda: N._forward(net, x, m))
+        k_replay = _device_kernels(_graph_at(net, B).graph.replay)
+        rows = _op_kernels(lambda: N._forward(net, x, m))
+        dense, extra, memset = 0, {}, []
+        for op, shapes, kernels in rows:
+            if op == "aten::addmm" and _trunk_addmm(shapes, B):
+                dense += 1
+                names = [k for k, _ in kernels]
+                launched = [k for k in names
+                            if not k.startswith(("Memset", "Memcpy"))]
+                if len(launched) != 1:
+                    extra[str(shapes)] = names
+                elif len(names) > 1:
+                    memset.append(f"{shapes[1]} x {shapes[2]}")
+        fused = dense - len(extra)
+        adds = sum(1 for op, sh, _ in rows
+                   if op == "aten::add" and len(sh) > 1 and len(sh[1]) == 1)
+        ms = _replay_ms({"once": _graph_at(net, B).graph,
+                         "two roundings": _graph_at(old, B).graph})
+        gap = [float((once[i].float() - two[i].float()).abs().max())
+               for i in range(2)]
+        kinds, slow = _kinds(rows)
+        kinds_two, slow_two = _kinds(rows_two)
+        out["batches"][B] = {
+            "kernels_once": k_once, "kernels_two_roundings": k_two,
+            "kernels_replay": k_replay, "trunk_addmm": dense, "fused": fused,
+            "not_fused": extra, "gemm_after_memset": memset,
+            "bias_adds": adds, "replay_ms": ms,
+            "kinds_us_once": kinds, "kinds_us_two_roundings": kinds_two,
+            "slow_elementwise_us_once": slow,
+            "slow_elementwise_us_two_roundings": slow_two,
+            "probs_v_gap_to_two_roundings": gap}
+        print(f"bt4 dense B={B}: {fused} of {dense} trunk addmm one kernel "
+              f"(not fused: {extra}; a memset before the GEMM: {memset}); "
+              f"kernels per evaluation {k_once}, "
+              f"two roundings {k_two} (-{k_two - k_once}), replay "
+              f"{k_replay}; bias adds {adds}; replay ms {ms}; device µs by "
+              f"kind {kinds}, two roundings {kinds_two}; "
+              f"elementwise_kernel<128, 4, ...> µs two roundings {slow_two}, "
+              f"once {slow}; |once - two roundings| probs, v {gap}",
+              flush=True)
+        if k_replay != k_once:
+            failed.append(f"B={B}: replay ran {k_replay} kernels, the eager "
+                          f"forward {k_once}")
+        if dense != 1 + 6 * net.cfg.layers or adds:
+            failed.append(f"B={B}: {dense} trunk addmm, {adds} bias adds")
+        if k_two - k_once != fused or not fused:
+            failed.append(f"B={B}: kernels fell by {k_two - k_once}, "
+                          f"{fused} Denses fused")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"bt4 dense phase {out['seconds']:.0f} s", flush=True)
+    if check and failed:
+        raise AssertionError("; ".join(failed))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the full record to this "
@@ -3437,6 +3649,7 @@ def main(argv=None) -> int:
     reuse = phase_reuse()
     reference = phase_reference()
     graphs = phase_graphs()
+    bt4_dense = phase_bt4_dense()
     train = phase_train(examples)
     with tempfile.TemporaryDirectory() as keep:
         coach = phase_coach(keep)
@@ -3517,6 +3730,7 @@ def main(argv=None) -> int:
               "bf16": bf16,
               "reuse": reuse,
               "reference": reference, "graphs": graphs,
+              "bt4_dense": bt4_dense,
               "train": train, "coach": coach,
               "pit": pit, "export": export, "distributed": distributed,
               "tooling": tooling, "profiler_short": PROFILER_SHORT,

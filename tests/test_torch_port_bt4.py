@@ -83,8 +83,9 @@ def test_net_equals_the_reference(players):
 def test_bf16_trunk_within_bf16_limits(players):
     """The bf16 trunk against the float32 reference.  bf16 keeps 8 bits of
     mantissa (a unit roundoff of 2^-9 = 2e-3 relative), and each of the
-    trunk's ~25 rounded steps a layer (every Dense's input, kernel, product
-    and bias, the attention, the residual adds) adds its own error before
+    trunk's ~20 rounded steps a layer (every Dense's input, kernel and
+    output, its product and bias rounded once; the attention, the residual
+    adds) adds its own error before
     the LayerNorms bring it back to unit scale: the values, tanh of a sum
     over 64 features, stay within 0.1 (~50 roundoffs), the priors within
     0.02.  Both gaps are above 0 (bf16 is not float32), and the same
@@ -102,6 +103,74 @@ def test_bf16_trunk_within_bf16_limits(players):
     assert 0 < prior_gap < 0.02
     p32, v32, _ = N.apply_inference(net32, boards, valid)
     assert float((v32 - rv).abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("rule, want", [
+    ("_dense_once", 1 + 2 ** -7),    # version 3: one rounding
+    ("_dense", 1.0),                 # versions 0-2, Flax: the product first
+])
+def test_bf16_dense_rounding(rule, want):
+    """x = [1, 1], w = [1, 2^-8], b = 2^-8: the sum 1 + 2^-7 is a bf16
+    number, but the product alone, 1 + 2^-8, rounds to 1 (a tie, to even),
+    and 1 + 2^-8 rounds to 1 again.  Version 3's Dense rounds once; the
+    rule of versions 0-2 keeps Flax's two roundings."""
+    lin = nn.Linear(2, 1)
+    with torch.no_grad():
+        lin.weight.copy_(torch.tensor([[1.0, 2.0 ** -8]]))
+        lin.bias.fill_(2.0 ** -8)
+        x = torch.ones(1, 2, dtype=torch.bfloat16)
+        y = getattr(N, rule)(lin, x)
+        assert y.dtype == torch.bfloat16
+        assert float(y) == want
+        assert float(getattr(N, rule)(lin, x.float())) == 1 + 2 ** -7
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_version_3_takes_its_own_dense_rule(dtype, monkeypatch):
+    """Every Dense of the trunk goes through ``_dense_once``: the embedding,
+    seven a layer (the bias-free ``dense_4`` among them) and the shared
+    generator once a layer; none through ``_dense``, Flax's rule, which a
+    version-1 net still takes for each of its Denses."""
+    calls = {"_dense": 0, "_dense_once": 0}
+    for rule in calls:
+        def counted(lin, x, _f=getattr(N, rule), _r=rule):
+            calls[_r] += 1
+            return _f(lin, x)
+        monkeypatch.setattr(N, rule, counted)
+    boards, valid = _boards(B=3)
+    N.apply_inference(N.build_net(_cfg(dtype=dtype), "cpu"), boards, valid)
+    assert calls == {"_dense": 0, "_dense_once": 1 + 8 * TINY["layers"]}
+    calls["_dense_once"] = 0
+    v1 = A.net_config_for(E.SplendorConfig(num_players=2), dtype=dtype)
+    N.apply_inference(N.build_net(v1, "cpu"), boards, valid)
+    assert calls["_dense"] > 0 and calls["_dense_once"] == 0
+
+
+def test_bf16_train_step():
+    """One Adam step of a bf16 version-3 net: the loss reaches every biased
+    Dense through ``F.linear``, whose gradients land float32 and finite on
+    the float32 parameters, and the step moves each of them."""
+    net = _random_net(_cfg(dtype="bfloat16", dropout=0.1))
+    boards, valid = _boards(B=6, seed=5)
+    (log_pi, v, log_sd), _ = N.apply_train(
+        net, boards, valid, torch.Generator().manual_seed(0))
+    loss = (v.square().sum() - torch.where(valid, log_pi, 0.0).sum()
+            + log_sd.exp().mean())
+    loss.backward()
+    biased = {n: m for n, m in net.named_modules()
+              if isinstance(m, nn.Linear) and m.bias is not None
+              and n not in {f"dense_{k}" for k in range(2, 8)}}   # not heads
+    assert len(biased) == 1 + 6 * TINY["layers"]
+    before = {}
+    for n, m in biased.items():
+        for p in (m.weight, m.bias):
+            assert p.dtype == p.grad.dtype == torch.float32, n
+            assert torch.isfinite(p.grad).all() and p.grad.abs().sum() > 0, n
+        before[n] = (m.weight.detach().clone(), m.bias.detach().clone())
+    torch.optim.Adam(net.parameters(), lr=1e-3).step()
+    for n, m in biased.items():
+        assert not torch.equal(m.weight, before[n][0]), n
+        assert not torch.equal(m.bias, before[n][1]), n
 
 
 def test_bf16_trunk_computes_in_bf16():
