@@ -1,129 +1,44 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
+Its kernels held to their plain versions, launch counts on every path,
+and each kernel's device time:
+
     python3 chip_smoke.py [--out RECORD.json]
 
-Phases (each raises on failure):
-1. print the card's name and power limit, build the CUDA kernels;
-2. hold every kernel against its plain PyTorch version on the card: the
-   backup's entry and its operand contract on the arguments of every
-   simulation of a main-path search and of searches at self-play's two
-   shapes, and on made-up repeats and collisions, the split contract on
-   made-up paths; time each on the device beside its bound and its library
-   call, and the backup's host cost with and without operand building;
-   the descent kernel on made-up trees and, in every output, on every
-   simulation of searches at B=1024/M=65, B=256/M=129, B=64/M=129 and
-   B=1/M=1601 (review, no depth cap), its device time and its host time
-   per call at those shapes beside its bound (the larger of its bytes and
-   its latency floor, a dependent L2 load per level, probed with
-   ``ops/csrc/l2_chase.cu``), the launch floor (the device time of that
-   file's empty kernel) and the plain version's device and host time;
-   then both kernels' bf16 instantiations (``stats_dtype="bfloat16"``) on
-   made-up inputs (the descent's last case a chain to the stats tensor's
-   last row) and on every simulation of bf16 searches at B=1024/M=65,
-   B=256/M=129 and self-play's two PCR shapes (B=64/M=129, B=192/M=33),
-   both kernels at each shape the bf16 paths launch them at, with device
-   times at the first two (``BF16_DESCENT_SHAPES``, ``BF16_BACKUP_SHAPES``);
-   that ``stats_dtype="auto"`` gives float32 stats on the card is checked
-   on the main-path search here and on phase 8's carried trees; the
-   env-step kernel byte for byte against ``search_step_plain`` in all four
-   outputs, on playout states (past round 127) x all 409 actions at every
-   config of ``ENV_STEP_CONFIGS`` (2-4 players, noble select, reserve off,
-   giveback off, token limit 8) and on every 8th simulation's transition
-   of a main-path search, its device time at B=1024, 256, 64 and 1 beside
-   its bound and the launch floor, its wrapper's host time and the plain
-   version's device and host time;
-3. search: B=1024 boards, 64 sims, root noise on, with the v1 width-128
-   net of ``runs/r6/best.pt``; asserts the visit counts and that the
-   backup, descent and env-step kernels ran once per simulation; one
-   profiled search (spans, kernels per simulation); the plain descent
-   (``select_plain``, installed by this script) and the kernel in turns,
-   and one profiled search with the plain descent; the plain step
-   (``search_step_plain``, installed by this script) and the kernel in
-   turns, each search with the same roots, net and noise and equal visit
-   counts, and one profiled search with the plain step; then one profiled
-   search with the backup's operands built by PyTorch ops, for the host's
-   share;
-4. self-play: the actor at B=256, 128 sims, playout-cap randomization and
-   forced playouts, 12 moves; then the benchmark entry points
-   (``phase_bench``): ``cli.bench``'s search row in a child at B=1024,
-   S=64, 5 reps (its one JSON line checked, the card not degraded by its
-   pins), and ``cli.bench``'s self-play row and ``cli.bench_selfplay``'s
-   row in this process at phase 4's shape and cut; then bf16
-   (``phase_bf16``): the search at
-   B=1024, S=64 and 12 moves of fresh self-play at B=256, S=128 on bf16
-   stats, one descent and one backup launch per simulation; the search
-   with f32 and bf16 stats, and with the f32 and bf16 trunk, in turns;
-5. the same small search on the CPU (plain versions) and on the card, as
-   the reference check; then the graphed leaf evaluator
-   (``phase_graphs``): bit for bit against ``apply_inference`` at B = 1,
-   38, 77, 90, 128, 179 and 256 (r6 float32 and bf16 trunk, r12), after
-   an in-place Adam step and with two nets in turns, a search's root
-   values unchanged by later replays, self-play plies and B=1 searches
-   equal to those over an eager evaluator, the traced replay's kernels
-   equal to the eager forward's, host µs per evaluation; then the BT4
-   cell's bf16 net (``phase_bt4_dense``) at B = 77, 179 and 256: graphed
-   bit for bit, each biased Dense of the trunk one GEMM with the bias in
-   its epilogue (the shapes where not), no separate bias add, kernels per
-   evaluation and device time by kind beside the two-rounding Dense rule;
-6. train: ``fit`` for one epoch of r6's ``TrainConfig`` (batch 64, lr 3e-4,
-   augmentation on, dropout 0.3, one chunk of 64 steps) on the self-play
-   phase's examples, from ``runs/r6/best.pt`` with its Adam moments: steps/s,
-   examples/s, ms per step, the first and last loss, one profiled chunk's
-   device busy time, idle share and kernels per step, and one step from the
-   same batch (fixed symmetry choices, dropout 0) on the card and the CPU;
-7. coach: one ``Coach.learn`` iteration from the r6 weights (16 games, 32
-   sims, 8 gate games at 16 sims): the stages' seconds, examples,
-   rollouts/s and the gate tally; asserts one backup launch per simulation
-   the coach's searches ran, holds a spread of those launches at each of
-   the coach's search shapes exactly to the plain version on the stats and
-   arguments each was given (the backup's and the descent's: every path
-   below that checks its backups checks its descents the same way), and
-   checks that the checkpoint written on the
-   card loads on the CPU with the card's forward;
-8. reuse: a reusing search at B=1024, 64 sims (capacity 129), r6, for 4
-   moves (search, argmax, in-tree next state, reroot), checked (up to 12
-   backup launches per move, with their per-board slots, and 4 descents
-   per move, on the carried trees of moves 2-4 too, held exactly to the
-   plain version; one move's reroot equal on the card and the CPU)
-   and then timed (ms per run beside a fresh search of the same roots,
-   reroot host and device ms, kept nodes, descent levels); self-play with
-   ``tree_reuse=True`` at phase 4's shape, first 4 checked moves (a spread
-   of backup launches at each of its shapes, capacity 257, held exactly to
-   the plain version), then 12 timed ones (rollouts/s, hit share, masked
-   root visits, peak memory; phase 4 ran the fresh actor in the same
-   call); the training CLI's ``main`` with ``--tree-reuse`` on the card,
-   its backups checked the same way;
-9. pit: ``cli.pit runs/r6/best.pt greedy --batched -n 4 -m 16``, then a
-   batched tournament of r6 and the coach phase's ``temp.pt`` with a
-   ratings book, their backups checked the same way;
-10. export: r6 to ``.pt2`` on the card (``cli.export``), reloaded and held
-   to the live net at B=1, 7 and 1024, its B=1024 forward timed beside
-   the live net's; r6's ONNX from the port's writer run by
-   ``tests/onnx_mini.py`` on 8 boards against the card's forward;
-11. distributed: a child process under torchrun's variables at W=1 (NCCL)
-   runs the training CLI's ``main`` with ``--distributed`` (8 games at 16
-   sims, 4 gate games at 8 sims, from r6), the sharded train step beside
-   the plain one, the port's dry run (``parallel/dryrun.py``) and
-   ``cli.bench_scaling`` at B=4096; it reports its backup launches and
-   their check against the plain version in a JSON file; this process
-   runs the same CLI iteration without ``--distributed`` and holds the
-   two equal;
-12. tooling: the sequential pit (``cli.pit runs/r6/best.pt greedy -n 2
-   -m 16 --record-dir``), ``cli.analyze`` of a recorded game, alpha-beta
-   (depth 1, 0.5 s, 2 CPU workers) against r6 under ``--batched``,
-   ``cli.train_offline`` for one epoch on phase 4's examples from r6, and
-   ``review_position`` of a board-DSL position at 1,600 sims (B=1, M=1601)
-   inside ``utils.profiling.trace`` with its ``top_ops``; the entry's
-   device time at B=1/M=17 and B=1/M=1601 beside its bound;
-phases 3, 4 (with the bench rows run in this process), 7, 8, 9, 11 and 12
-assert one backup, one descent and one env-step launch per simulation
-their searches ran;
-then a line with the bench rows, one JSON line with every kernel's
-launches, error and times, and the
-last line ``{"ok": true, "device": {...}}``.  It exits non-zero, printing
-no result, when there is no CUDA device.  With ``--out``, the full
-measurements are also written to that JSON file.
+Phases, in the order they run (each raises on failure):
+
+- ``phase_build``: the card's name and power limit; the CUDA kernels built.
+- ``phase_kernels``: the backup (split, entry and operand contracts), the
+  descent and the env step, float32 and bf16, each equal to its plain
+  version on made-up inputs and on every simulation of searches at the
+  main path's and self-play's shapes; their device time per launch beside
+  the bound, the L2 latency and the launch floor (``l2_chase.cu``), the
+  plain version's device and host time and ``index_put_``'s.
+- ``phase_search``: the main path's search (B=1024, S=64, r6): visit
+  counts, one backup, descent and env-step launch per simulation, one
+  profiled search; the plain step's search equal in visit counts.
+- ``phase_selfplay``, ``phase_bench``, ``phase_bf16``: fresh self-play
+  (B=256, S=128, PCR), ``cli.bench`` and ``cli.bench_selfplay``'s rows,
+  and the search and self-play on bf16 stats, launches = simulations.
+- ``phase_reuse``: the reusing search, self-play with reuse and
+  ``cli.main --tree-reuse``; backups and descents held to plain on
+  carried trees, a reroot equal on the card and the CPU.
+- ``phase_reference``: small searches equal on the CPU and the card.
+- ``phase_graphs``, ``phase_bt4_dense``: the graphed leaf evaluator bit
+  for bit against ``apply_inference`` (r6, r12, the BT4 cell's net), the
+  replay's kernels equal to the eager forward's; each biased BT4 trunk
+  Dense one GEMM with no bias add of its own.
+- ``phase_train``, ``phase_coach``, ``phase_pit``, ``phase_export``,
+  ``phase_distributed``, ``phase_tooling``: ``fit``, a coach iteration,
+  the pit, export, ``--distributed`` at W=1 and the tools on the card,
+  each search path's backups and descents held to plain in a spread of
+  launches and counted against its simulations.
+
+Then a line with the bench rows, one JSON line with every kernel's
+launches, error and times, the card's line and last ``{"ok": true,
+"device": {...}}``.  It exits non-zero, printing no result, when there is
+no CUDA device.  With ``--out``, the full record is written to that file.
 """
 
 from __future__ import annotations
@@ -141,9 +56,11 @@ import sys
 import tempfile
 import time
 
+from h100bench import peaks
+from h100bench.work import env_step_bytes
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
-FP32_OPS_PER_S = 67e12             # H100 SXM float32 outside tensor cores
+PADS = 16                  # spin kernels that open a profiled window
 
 
 def _sync():
@@ -151,73 +68,159 @@ def _sync():
     torch.cuda.synchronize()
 
 
-# profiled calls of ``_device_ms`` in which the profiler lost a named
-# kernel's records: (name, units, records seen), printed before the last line
+@contextlib.contextmanager
+def _installed(owner, **values):
+    """While open, ``owner``'s attributes named in ``values`` are those
+    values (a recording wrapper in place of a package function); the old
+    ones are restored on exit."""
+    saved = {k: getattr(owner, k) for k in values}
+    for k, v in values.items():
+        setattr(owner, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(owner, k, v)
+
+
+# profiled calls that kept too few records (see ``_profile``): (kernel
+# name, records wanted, kept), or (None, "agreeing windows", the device
+# records each whole window kept), printed before the last line
 PROFILER_SHORT = []
+
+
+def _profile(fn, name=None, per_call=None, counter=None, host=False,
+             shapes=False):
+    """One profiled call of ``fn``: its wall time; with ``host`` the host
+    ms per ``mcts.*`` span, and with ``shapes`` each op that launched
+    kernels with its input shapes and those kernels' µs (``ops``); device
+    busy time (the union of kernel, copy and memset intervals), their sum,
+    idle share, device ops and kernels (copies and memsets left out)
+    counted, the kernels with the most device time, and with ``name`` the
+    µs of each kernel whose name holds it (``named_us``).  The profiler
+    loses records: on the H100's hosts the first 6-9 of a window, now and
+    then some 50, and now and then a run inside a window.  So each window
+    opens with spin kernels, ``PADS`` of them and twice as many at each
+    retry, and is whole when it kept one of them or more (what was lost at
+    its start was pads) and, with ``name``, nine tenths of its
+    ``per_call`` records of that kernel.  Where the call does ``per_call``
+    units of work (a time, a median over calls) the first whole window is
+    taken; where not (a profile, a count of kernels), the first two whole
+    windows that kept as many device records.  Eight windows are profiled
+    at most; failing that, the whole window that kept the most records is
+    taken, else the window that kept the most of ``name`` if it kept a
+    quarter of them, either logged in ``PROFILER_SHORT``; else this
+    raises.  With ``counter`` every profiled call must raise that
+    wrapper's launch count by ``per_call``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    whole, best = {}, (0, None)
+    for attempt in range(8):
+        _sync()
+        before = None if counter is None else counter.launches
+        with profile(activities=acts, record_shapes=shapes) as prof:
+            for _ in range(PADS << attempt):
+                torch.cuda._sleep(100)
+            t0 = time.perf_counter()
+            fn()
+            _sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        if before is not None and counter.launches - before != per_call:
+            raise AssertionError(f"{counter.launches - before} {name!r} "
+                                 f"launches counted for {per_call} units")
+        events = prof.events()
+        # annotations (the mcts.* spans, Optimizer.step#...) show up on the
+        # device timeline too, under the name of their host range
+        host_names = {e.name for e in events
+                      if e.device_type == DeviceType.CPU}
+        dev = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name not in host_names]
+        pads = sum("spin_kernel" in e.name for e in dev)
+        dev = [e for e in dev if "spin_kernel" not in e.name]
+        named = [e.time_range.elapsed_us() for e in dev
+                 if name is not None and name in e.name]
+        if name is not None and len(named) > per_call:
+            raise AssertionError(f"the profiler saw {len(named)} {name!r} "
+                                 f"kernels for {per_call} units")
+        window = (events, dev, named, wall_ms)
+        if pads and (name is None or len(named) >= 0.9 * per_call):
+            if per_call is not None or len(dev) in whole:
+                break
+            whole[len(dev)] = window
+        elif len(named) > best[0]:
+            best = (len(named), window)
+    else:
+        if whole:
+            window = whole[max(whole)]
+            PROFILER_SHORT.append((name, "agreeing windows", sorted(whole)))
+        elif name is not None and 4 * best[0] >= per_call:
+            window = best[1]
+            PROFILER_SHORT.append((name, per_call, best[0]))
+        else:
+            raise AssertionError(f"no whole window in 8, the best kept "
+                                 f"{best[0]} of {per_call} {name!r} records")
+    events, dev, named, wall_ms = window
+    spans, by_name = {}, {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name.startswith("mcts."):
+            spans[e.name] = (spans.get(e.name, 0.0)
+                             + e.time_range.elapsed_us() / 1e3)
+    for e in dev:
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() / 1e3)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    busy_ms = busy_us / 1e3 if dev else None
+    out = {"wall_ms": wall_ms, "spans_host_ms": spans,
+           "device_busy_ms": busy_ms, "device_ms": sum(by_name.values()),
+           "device_idle_share": (None if busy_ms is None
+                                 else 1.0 - busy_ms / wall_ms),
+           "kernel_launches": len(dev),
+           "kernels": sum(not e.name.startswith(("Memcpy", "Memset"))
+                          for e in dev),
+           "top_kernels_ms": dict(sorted(by_name.items(),
+                                         key=lambda kv: -kv[1])[:8]),
+           "named_us": named}
+    if shapes:
+        out["ops"] = []
+        for e in events:
+            ks = [(k.name, k.duration) for k in e.kernels
+                  if "spin_kernel" not in k.name]
+            if ks:
+                out["ops"].append((e.name, e.input_shapes, ks))
+    return out
 
 
 def _device_ms(fn, name=None, reps=5, warmup=2, per_call=1, counter=None):
     """Device time per unit of work from the profiler's kernel durations:
-    each of ``reps`` profiled calls of ``fn`` does ``per_call`` units; the
-    result is the median over the calls.  Without ``name`` a call's time is
-    the sum of all its kernels' durations over ``per_call``.  With ``name``
-    only the kernels whose name contains it count, one per unit, and a
-    call's time is their mean duration.  The profiler loses a kernel's
-    record now and then (where it switches activity buffers, and on some
-    hosts a few of the first in a window), so with ``name`` each window
-    opens with 16 small kernels of another name, and a call whose window
-    holds fewer than nine tenths of its records is profiled again, eight
-    times at most; then the attempt that kept the most records is taken
-    if it kept a quarter of them (logged in ``PROFILER_SHORT``), else this
-    raises.  A lost record costs a sample, not the time of the ones kept.
-    What no record is needed for is held exactly: every profiled call must
+    each of ``reps`` profiled calls of ``fn`` (``_profile``'s windows) does
+    ``per_call`` units; the result is the median over the calls.  Without
+    ``name`` a call's time is the sum of all its kernels' durations over
+    ``per_call``.  With ``name`` only the kernels whose name contains it
+    count, one per unit, and a call's time is their mean duration: a lost
+    record costs a sample, not the time of the ones kept.  What no record
+    is needed for is held exactly: with ``name`` every profiled call must
     raise the wrapper's launch count (``counter``, by default
     ``fused_backup``'s) by ``per_call``.  CUDA events around the calls
     would also count the gaps in which the device waits for the host to
     launch the next kernel."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from alphazero_tpu_torch.ops import fused_backup as FB
-    counter = FB.fused_backup if counter is None else counter
-    pad = torch.zeros(1, device="cuda")
+    if name is not None and counter is None:
+        counter = FB.fused_backup
     for _ in range(warmup):
         fn()
     per_unit = []
     for _ in range(reps):
-        best = []
-        for _attempt in range(8):
-            _sync()
-            before = counter.launches
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                if name is not None:
-                    for _ in range(16):
-                        pad.add_(1.0)
-                fn()
-                _sync()
-            launched = counter.launches - before
-            if name is not None and launched != per_call:
-                raise AssertionError(f"{launched} {name!r} launches counted "
-                                     f"for {per_call} units")
-            us = [e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == DeviceType.CUDA
-                  and (name is None or name in e.name)]
-            if name is not None and len(us) > per_call:
-                raise AssertionError(f"the profiler saw {len(us)} {name!r} "
-                                     f"kernels for {per_call} units")
-            if len(us) > len(best):
-                best = us
-            if us and (name is None or len(us) >= 0.9 * per_call):
-                break
-        else:
-            if name is None or 4 * len(best) < per_call or not best:
-                raise AssertionError(f"the profiler saw {len(best)} "
-                                     f"{name!r} kernels for {per_call} "
-                                     f"units in 8 tries")
-            PROFILER_SHORT.append((name, per_call, len(best)))
-        us = best
-        per_unit.append(sum(us) / (per_call if name is None else len(us)))
-    return statistics.median(per_unit) / 1e3
+        p = _profile(fn, name, per_call, counter)
+        us = p["named_us"]
+        per_unit.append(p["device_ms"] / per_call if name is None
+                        else sum(us) / len(us) / 1e3)
+    return statistics.median(per_unit)
 
 
 def _time_host_ms(fn, reps=5):
@@ -296,21 +299,24 @@ def _made_up_entry_args(B, M, A, S1, P, g, dev, slot):
 
 
 def _main_search(device="cuda", B=1024, S=64, stats_dtype="auto",
-                 net_dtype="float32"):
-    """The main path's search: B boards, S sims, root noise on, the r6 net
-    (its trunk in ``net_dtype``), stats in ``stats_dtype``; returns ``(env
-    config, net, search, roots, generator)``."""
+                 step=None):
+    """The main path's search: B boards, S sims, root noise on, the r6 net,
+    stats in ``stats_dtype``, the transition ``step(cfg, states, actions)``
+    (by default the search's own, ``adapter.make_search_step_fn``);
+    returns ``(env config, net, search, roots, generator)``."""
     import torch
     from alphazero_tpu_torch.games.splendor import adapter as A
     from alphazero_tpu_torch.games.splendor import env as E
     from alphazero_tpu_torch.search import mcts as M
     cfg = E.SplendorConfig(num_players=2)
-    net = _r6_net(cfg, device, net_dtype)
+    net = _r6_net(cfg, device)
+    step_fn = (A.make_search_step_fn(cfg) if step is None
+               else functools.partial(step, cfg))
     search = M.build_search(
         M.MCTSConfig(num_sims=S, add_noise=True, dirichlet_alpha=0.2,
                      prior_temp=1.25, stats_dtype=stats_dtype), 2,
-        A.make_eval_fn(A.net_config_for(cfg, dtype=net_dtype)),
-        A.make_search_step_fn(cfg), A.make_valid_fn(cfg), device=device)
+        A.make_eval_fn(A.net_config_for(cfg)), step_fn, A.make_valid_fn(cfg),
+        device=device)
     g = torch.Generator(device=device).manual_seed(1)
     roots = E.initial_state(cfg, B, g, device=device)
     return cfg, net, search, roots, g
@@ -331,20 +337,10 @@ def _search_backup_args(**kw):
         base[:] = [stats.clone()]
         return real(stats, *args)
 
-    M.backprop_packed = record
-    try:
+    with _installed(M, backprop_packed=record):
         search(net, roots, generator=g)
-    finally:
-        M.backprop_packed = real
     _sync()
     return base[0], raws
-
-
-def _operand_backprop(stats, *args):
-    """``backprop_packed`` as it ran before the kernel built its own
-    operands: some 25 PyTorch launches, then the operand contract."""
-    from alphazero_tpu_torch.ops import fused_backup as FB
-    return FB.packed_backup(stats, *FB.packed_operands(stats, *args))
 
 
 def _touched(stats, path_p, path_a, w, child_p, child_a, child_v, row, slot,
@@ -381,7 +377,8 @@ def _touched(stats, path_p, path_a, w, child_p, child_a, child_v, row, slot,
 
 
 def _bound(nbytes, adds):
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, adds / FP32_OPS_PER_S
+    by_bytes = nbytes / peaks.HBM_BYTES_PER_S
+    by_ops = adds / peaks.FP32_FLOPS
     return (max(by_bytes, by_ops) * 1e3,
             "bytes" if by_bytes >= by_ops else "operations")
 
@@ -548,10 +545,6 @@ def phase_kernels():
         for op in ops:
             FB.packed_backup(st, *op)
 
-    def built_operand():
-        for raw in raws:
-            _operand_backprop(st, *raw)
-
     def plain():                  # a Python loop over levels: every 8th sim
         for raw in raws[::8]:
             FB.backprop_packed_plain(st, *raw)
@@ -560,7 +553,6 @@ def phase_kernels():
     plain_ms = _device_ms(plain, warmup=1, per_call=len(raws[::8]))
     plain_wall_ms = _time_host_ms(plain) / len(raws[::8])
     # the host's share: what one backup costs the caller, synchronized
-    host_operand_ms = _time_host_ms(built_operand) / n
     host_entry_ms = _time_host_ms(entry) / n
     flat = st.view(-1)
     flats = [_entry_touched(base, *raw)[:2] for raw in raws]
@@ -631,9 +623,7 @@ def phase_kernels():
                       f"bytes, {v['bound_by']})"
                       for k, v in small_ms.items()), flush=True)
     print(f"backup host us per launch, synchronized (median of 5 replays of "
-          f"{n} sims): operand building + operand contract "
-          f"{host_operand_ms * 1e3:.1f}, entry {host_entry_ms * 1e3:.1f}",
-          flush=True)
+          f"{n} sims): entry {host_entry_ms * 1e3:.1f}", flush=True)
     out["fused_backup"] = dict(
         # the replays raise unless they are exact, so they add 0
         max_abs_err=max(err_split, err_made_up),
@@ -646,7 +636,7 @@ def phase_kernels():
         split_ms=split_ms, split_plain_ms=split_plain_ms,
         split_bound_ms=split_bound_ms, split_bound_by=split_bound_by,
         split_bytes=split_bytes, split_library_ms=split_library_ms,
-        host_operand_ms=host_operand_ms, host_entry_ms=host_entry_ms,
+        host_entry_ms=host_entry_ms,
         live_levels_mean=live.mean().item(), live_levels_max=int(live.max()))
     out["descent"] = _descent_kernel_phase(g)
     out["env_step"] = _env_step_kernel_phase(
@@ -787,7 +777,6 @@ def _check_descent_search(B, S, kind, every, stats_dtype="auto"):
     from alphazero_tpu_torch.search import mcts as M
     search, net, roots, g = _descent_search(B, S, kind, stats_dtype)
     kept, worst, calls = [], [0.0], [0]
-    real = M._select
 
     def checked(cfg, stats, i, cap, levels):
         got = D.select(cfg, stats, i, cap, levels)
@@ -797,12 +786,9 @@ def _check_descent_search(B, S, kind, every, stats_dtype="auto"):
         if i % every == 0 or i == S - 1:
             kept.append((cfg, stats.clone(), i, cap, levels, got[3].clone()))
         return got
-    M._select = checked
-    try:
+    with _installed(M, _select=checked):
         search(net, roots, generator=g)
         _sync()
-    finally:
-        M._select = real
     if calls[0] != S:
         raise AssertionError(f"{calls[0]} descents for {S} simulations")
     return kept, worst[0]
@@ -881,11 +867,10 @@ def _descent_times(kept, l2_ms, reps=5, launches=64):
     per call, and the least time ``bound_ms``, the largest of three: bytes
     (per board, per level visited, the three edge lanes, three node scalars
     and the child pointer read, in the stats' dtype, and the outputs
-    written once) at 3.35 TB/s,
-    6 float operations per edge visited at 67 TFLOP/s (those two are
-    ``work_bound_ms``, the kernels line's bound), and the latency floor,
-    one dependent L2 load per level of the deepest path; means over the
-    kept launches."""
+    written once) and 6 float operations per edge visited at the peaks of
+    ``h100bench/peaks.py`` (those two are ``work_bound_ms``, the kernels
+    line's bound), and the latency floor, one dependent L2 load per level
+    of the deepest path; means over the kept launches."""
     from alphazero_tpu_torch.ops import descent as D
     n = len(kept)
     # the profiler may lose a tenth of the records of one profiled call, so
@@ -1075,22 +1060,15 @@ def _env_step_search_inputs(every=8):
     """The transition's inputs in every ``every``-th simulation of one
     main-path search (B=1024, S=64, r6), recorded by the search's step
     function as the search runs."""
-    from alphazero_tpu_torch.games.splendor import adapter as A
     from alphazero_tpu_torch.ops import env_step as ES
-    make, kept, calls = A.make_search_step_fn, [], [0]
+    kept, calls = [], [0]
 
-    def recording(cfg):
-        def step_fn(states, actions):
-            if calls[0] % every == 0:
-                kept.append((states.clone(), actions.clone()))
-            calls[0] += 1
-            return ES.search_step(cfg, states, actions)
-        return step_fn
-    A.make_search_step_fn = recording
-    try:
-        cfg, net, search, roots, g = _main_search()
-    finally:
-        A.make_search_step_fn = make
+    def recording(cfg, states, actions):
+        if calls[0] % every == 0:
+            kept.append((states.clone(), actions.clone()))
+        calls[0] += 1
+        return ES.search_step(cfg, states, actions)
+    cfg, net, search, roots, g = _main_search(step=recording)
     search(net, roots, generator=g)
     _sync()
     if calls[0] != 64:
@@ -1102,11 +1080,10 @@ def _env_step_times(cfg, ins, reps=5, launches=64):
     """The kernel's device ms per launch on the inputs ``ins`` (median of
     ``reps`` profiled calls of 64+ launches) and its wrapper's synchronized
     host ms per call, the plain version's device and host ms per call, and
-    the least time: the bytes one launch must move (states and actions
-    read, the four outputs written, the tables' mask slots and each
-    board row's two 2-byte swap entries read) at 3.35 TB/s.
-    The operations are integer compares and adds, for which the table of
-    peaks has no rate, so they give no bound."""
+    the least time: the bytes one launch must move (``h100bench.work.
+    env_step_bytes``) at the peak of ``h100bench/peaks.py``.  The
+    operations are integer compares and adds, for which the table of peaks
+    has no rate, so they give no bound."""
     from alphazero_tpu_torch.ops import env_step as ES
     n = len(ins)
     rounds = -(-launches // n)
@@ -1119,15 +1096,13 @@ def _env_step_times(cfg, ins, reps=5, launches=64):
     def plain():
         for s, a in ins:
             ES.search_step_plain(cfg, s, a)
-    B, P = ins[0][0].shape[0], cfg.num_players
-    nbytes = (B * (2 * cfg.rows * 7 + 8 + 4 * P + 409 + 8)
-              + ES.pack_slots().nbytes + 4 * cfg.rows)
+    nbytes = env_step_bytes(ins[0][0].shape[0], cfg.num_players)
     return {"ms": _device_ms(kernel, "env_step_kernel", per_call=rounds * n,
                              counter=ES.search_step, reps=reps),
             "host_ms": _time_host_ms(kernel, reps=3) / (rounds * n),
             "plain_ms": _device_ms(plain, warmup=1, per_call=n, reps=reps),
             "plain_host_ms": _time_host_ms(plain, reps=3) / n,
-            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bytes": nbytes, "bound_ms": nbytes / peaks.HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes"}
 
 
@@ -1235,49 +1210,6 @@ def _r6_net(cfg, device, dtype="float32"):
     return other
 
 
-def _profile(fn):
-    """One profiled call of ``fn``: host time per ``mcts.*`` span, device
-    busy time (union of kernel and copy intervals) against the wall time,
-    and the kernels with the most device time.  Device numbers are None
-    when the profiler saw no kernels."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    _sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        _sync()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans, kernels, intervals = {}, {}, []
-    events = prof.events()
-    # annotations (the mcts.* spans, Optimizer.step#...) show up on the
-    # device timeline too, under the name of their host range
-    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
-    for e in events:
-        if e.device_type == DeviceType.CPU and e.name.startswith("mcts."):
-            spans[e.name] = (spans.get(e.name, 0.0)
-                             + e.time_range.elapsed_us() / 1e3)
-        elif e.device_type == DeviceType.CUDA and e.name not in host_names:
-            intervals.append((e.time_range.start, e.time_range.end))
-            kernels[e.name] = (kernels.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3)
-    busy_us, end = 0.0, float("-inf")
-    for a, b in sorted(intervals):
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    busy_ms = busy_us / 1e3 if intervals else None
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    return {"wall_ms": wall_ms, "spans_host_ms": spans,
-            "device_busy_ms": busy_ms,
-            "device_idle_share": (None if busy_ms is None
-                                  else 1.0 - busy_ms / wall_ms),
-            "kernel_launches": len(intervals),
-            "top_kernels_ms": dict(top)}
-
-
 def _zero_launches():
     """Set the search kernels' launch counts to 0."""
     from alphazero_tpu_torch.ops import descent as D
@@ -1310,13 +1242,6 @@ def _check_launches(what, sims, backups, descents, steps):
         raise AssertionError(f"{what}: {backups} backup, {descents} descent "
                              f"and {steps} env-step launches for {sims} "
                              f"simulations")
-
-
-def _plain_select(cfg, stats, sim_idx, depth_cap, levels):
-    """The search's descent as it ran before the kernel: ``select_plain`` on
-    the card (installed as ``mcts._select`` by this script only)."""
-    from alphazero_tpu_torch.ops import descent as D
-    return D.select_plain(cfg, stats, sim_idx, depth_cap, levels)
 
 
 def _run_checked_search(cfg, net, search, roots, g, S, what, reps=1):
@@ -1355,28 +1280,13 @@ def _run_checked_search(cfg, net, search, roots, g, S, what, reps=1):
     return res, times, launches, descents, steps
 
 
-def _turns(variants, reps=2):
-    """Milliseconds of each variant ``name -> run`` (``run()`` does one
-    search and waits for the card), timed in turns (a, b, b, a for two
-    variants), ``reps`` calls a turn, after one warm-up call each.
-    Returns the medians and every time."""
-    order = list(variants) + list(variants)[::-1]
-    times = {k: [] for k in variants}
-    for run in variants.values():
-        run()
-    for k in order:
-        for _ in range(reps):
-            _sync()
-            t0 = time.perf_counter()
-            variants[k]()
-            _sync()
-            times[k].append((time.perf_counter() - t0) * 1e3)
-    return {k: statistics.median(v) for k, v in times.items()}, times
-
-
 def phase_search(reps=5):
-    from alphazero_tpu_torch.ops import fused_backup as FB
-    from alphazero_tpu_torch.search import mcts as M
+    """The main path's search, checked and timed (``_run_checked_search``),
+    one profiled search, and a search with the plain step
+    (``search_step_plain`` as its step function) equal in visit counts to
+    one with the kernel from the same roots, net and root noise."""
+    import torch
+    from alphazero_tpu_torch.ops import env_step as ES
     B, S = 1024, 64
     cfg, net, search, roots, g = _main_search(B=B, S=S)
     _, times, launches, descents, steps = _run_checked_search(
@@ -1386,126 +1296,31 @@ def phase_search(reps=5):
           f"{statistics.median(times) * 1e3:.1f} ms/search); backup launches "
           f"{launches}, descent launches {descents}, env-step launches "
           f"{steps}", flush=True)
-    prof = _profile(lambda: search(net, roots, generator=g))
+    prof = _profile(lambda: search(net, roots, generator=g), host=True)
     spans = ", ".join(f"{k} {v:.1f}" for k, v in
                       sorted(prof["spans_host_ms"].items()))
     print(f"search profile: wall {prof['wall_ms']:.1f} ms; host ms per span: "
           f"{spans}; device busy {prof['device_busy_ms']} ms, idle share "
           f"{prof['device_idle_share']}, {prof['kernel_launches']} kernels "
           f"({prof['kernel_launches'] / S:.2f} per simulation)", flush=True)
-    # the plain descent and the kernel in turns (plain, kernel, kernel,
-    # plain; two searches each), then one profiled search with the plain
-    # descent, for its span and kernels
-    real_select = M._select
-
-    def with_descent(select, launches):
-        def run():
-            before = _descents()
-            M._select = select
-            try:
-                search(net, roots, generator=g)
-            finally:
-                M._select = real_select
-            if _descents() - before != launches:
-                raise AssertionError(f"{_descents() - before} descent "
-                                     f"launches in a search, not {launches}")
-        return run
-    medians, turns = _turns({"plain": with_descent(_plain_select, 0),
-                             "kernel": with_descent(real_select, S)})
-    M._select = _plain_select
-    try:
-        prof_plain = _profile(lambda: search(net, roots, generator=g))
-    finally:
-        M._select = real_select
-    plain_ms, kernel_ms = medians["plain"], medians["kernel"]
-    print(f"search B={B} S={S} in turns: plain descent {plain_ms:.1f} ms, "
-          f"descent kernel {kernel_ms:.1f} ms per search (medians of 4; "
-          f"{plain_ms / kernel_ms:.3f}x); profiled: mcts.descent host span "
-          f"{prof_plain['spans_host_ms']['mcts.descent']:.1f} / "
-          f"{prof['spans_host_ms']['mcts.descent']:.1f} ms, "
-          f"{prof_plain['kernel_launches'] / S:.2f} / "
-          f"{prof['kernel_launches'] / S:.2f} kernels per simulation, idle "
-          f"share {prof_plain['device_idle_share']} / "
-          f"{prof['device_idle_share']}", flush=True)
-    step_rec = _search_step_turns(net, search, roots, g, S, prof)
-    # One profiled search with the backup's operands built by PyTorch ops,
-    # as before the kernel built them, for the span's host time.
-    M.backprop_packed = _operand_backprop
-    try:
-        prof_ops = _profile(lambda: search(net, roots, generator=g))
-    finally:
-        M.backprop_packed = FB.backprop_packed
-    print(f"search with operand building / with the entry: mcts.backup host "
-          f"span "
-          f"{prof_ops['spans_host_ms']['mcts.backup']:.1f} / "
-          f"{prof['spans_host_ms']['mcts.backup']:.1f} ms per profiled "
-          f"search, {prof_ops['kernel_launches']} / "
-          f"{prof['kernel_launches']} kernels", flush=True)
-    return {"rollouts_per_s": rps, "search_ms": statistics.median(times) * 1e3,
-            "launches": launches, "descents": descents, "steps": steps,
-            "reps": reps, "env_step": step_rec,
-            "batch": B, "sims": S, "times_s": times, "profile": prof,
-            "operand_building": {"profile": prof_ops},
-            "descent_turns_ms": turns, "plain_descent_profile": prof_plain}
-
-
-def _plain_step(cfg, states, actions):
-    """The search's transition as it ran before the kernel:
-    ``search_step_plain`` on the card (installed as ``env_step.search_step``
-    by this script only)."""
-    from alphazero_tpu_torch.ops import env_step as ES
-    return ES.search_step_plain(cfg, states, actions)
-
-
-def _search_step_turns(net, search, roots, g, S, prof):
-    """The main path's search with the plain step and with the kernel in
-    turns (plain, kernel, kernel, plain; two searches each), each search
-    with the same roots, net and root noise (a generator seeded anew):
-    their visit counts must be equal; then one profiled search with the
-    plain step, beside ``prof``, the kernel's."""
-    import torch
-    from alphazero_tpu_torch.ops import env_step as ES
-    real_step, counts = ES.search_step, []
-
-    def with_step(step, launches):
-        def run():
-            before = _steps()
-            ES.search_step = step
-            try:
-                res = search(net, roots, generator=torch.Generator(
-                    device="cuda").manual_seed(5))
-            finally:
-                ES.search_step = real_step
-            if _steps() - before != launches:
-                raise AssertionError(f"{_steps() - before} env-step "
-                                     f"launches in a search, not {launches}")
-            counts.append(res.raw_counts)
-        return run
-    medians, turns = _turns({"plain": with_step(_plain_step, 0),
-                             "kernel": with_step(real_step, S)})
-    if not all(torch.equal(c, counts[0]) for c in counts):
+    plain = _main_search(B=B, S=S, step=ES.search_step_plain)[2]
+    counts = []
+    for run, want in ((plain, 0), (search, S)):
+        before = _steps()
+        counts.append(run(net, roots, generator=torch.Generator(
+            device="cuda").manual_seed(5)).raw_counts)
+        if _steps() - before != want:
+            raise AssertionError(f"{_steps() - before} env-step launches in "
+                                 f"a search, not {want}")
+    if not torch.equal(*counts):
         raise AssertionError("the searches with the plain step and with the "
                              "kernel gave different visit counts")
-    ES.search_step = _plain_step
-    try:
-        prof_plain = _profile(lambda: search(net, roots, generator=g))
-    finally:
-        ES.search_step = real_step
-    plain_ms, kernel_ms = medians["plain"], medians["kernel"]
-    print(f"search B={roots.shape[0]} S={S} in turns: plain step "
-          f"{plain_ms:.1f} ms, env_step kernel {kernel_ms:.1f} ms per search "
-          f"(medians of 4; {plain_ms / kernel_ms:.3f}x), visit counts equal "
-          f"over {len(counts)} searches; profiled: mcts.env_step host span "
-          f"{prof_plain['spans_host_ms']['mcts.env_step']:.1f} / "
-          f"{prof['spans_host_ms']['mcts.env_step']:.1f} ms, wall "
-          f"{prof_plain['wall_ms']:.1f} / {prof['wall_ms']:.1f} ms, "
-          f"{prof_plain['kernel_launches'] / S:.2f} / "
-          f"{prof['kernel_launches'] / S:.2f} kernels per simulation, device "
-          f"busy {prof_plain['device_busy_ms']} / {prof['device_busy_ms']} "
-          f"ms, idle share {prof_plain['device_idle_share']} / "
-          f"{prof['device_idle_share']}", flush=True)
-    return {"turns_ms": turns, "plain_ms": plain_ms, "kernel_ms": kernel_ms,
-            "searches_equal": len(counts), "plain_step_profile": prof_plain}
+    print(f"search B={B} S={S}: visit counts equal with the plain step and "
+          f"with the env_step kernel", flush=True)
+    return {"rollouts_per_s": rps, "search_ms": statistics.median(times) * 1e3,
+            "launches": launches, "descents": descents, "steps": steps,
+            "reps": reps, "batch": B, "sims": S, "times_s": times,
+            "profile": prof}
 
 
 class _MaskedVisits(logging.Handler):
@@ -1830,13 +1645,10 @@ def _bf16_kernel_phase(g, l2_ms):
 
 def phase_bf16():
     """The main path on bf16 stats (``stats_dtype="bfloat16"``, the JAX
-    package's TPU default at the bench shapes) and the bf16 trunk: the
-    search at B=1024, S=64 and 12 moves of fresh self-play at B=256,
-    S=128 on bf16 stats, each with one descent and one backup launch per
-    simulation; and the search's ms with f32 and bf16 stats, and with the
-    f32 and bf16 trunk, in turns.  (Phase 2 holds the bf16 kernels to their
-    plain versions.)"""
-    import torch
+    package's TPU default at the bench shapes): the search at B=1024,
+    S=64 and 12 moves of fresh self-play at B=256, S=128, each with one
+    descent and one backup launch per simulation.  (Phase 2 holds the bf16
+    kernels to their plain versions.)"""
     t_phase = time.perf_counter()
     marks = {}
 
@@ -1857,27 +1669,6 @@ def phase_bf16():
     mark("search")
     selfplay, _ = phase_selfplay(stats_dtype="bfloat16")
     mark("self-play")
-
-    # f32 vs bf16 stats, then f32 vs bf16 trunk, in turns
-    variants = {}
-    for k, sd, nd in (("f32", "float32", "float32"),
-                      ("bf16_stats", "bfloat16", "float32"),
-                      ("bf16_net", "float32", "bfloat16")):
-        _, net, search, roots, g = _main_search(B=B, S=S, stats_dtype=sd,
-                                                net_dtype=nd)
-        variants[k] = functools.partial(search, net, roots, generator=g)
-    stats_ms, stats_all = _turns({k: variants[k]
-                                  for k in ("f32", "bf16_stats")})
-    net_ms, net_all = _turns({k: variants[k] for k in ("f32", "bf16_net")})
-    print(f"search B={B} S={S} in turns: f32 stats {stats_ms['f32']:.1f} ms, "
-          f"bf16 stats {stats_ms['bf16_stats']:.1f} ms "
-          f"({stats_ms['f32'] / stats_ms['bf16_stats']:.3f}x); f32 trunk "
-          f"{net_ms['f32']:.1f} ms, bf16 trunk {net_ms['bf16_net']:.1f} ms "
-          f"({net_ms['f32'] / net_ms['bf16_net']:.3f}x) (medians of 4)",
-          flush=True)
-    del variants
-    torch.cuda.empty_cache()
-    mark("turns")
     seconds = time.perf_counter() - t_phase
     print(f"bf16 phase {seconds:.1f} s ("
           + ", ".join(f"{k} {v:.1f}" for k, v in marks.items())
@@ -1888,8 +1679,6 @@ def phase_bf16():
                 launches=launches + selfplay["launches"],
                 descents=descents + selfplay["descents"],
                 steps=steps + selfplay["steps"], selfplay=selfplay,
-                turns_stats_ms=stats_ms, turns_net_ms=net_ms,
-                turns_stats_all=stats_all, turns_net_all=net_all,
                 seconds=seconds, seconds_by_step=marks)
 
 
@@ -1985,7 +1774,7 @@ def phase_train(it):
         raise AssertionError(f"fit took {steps} steps, loss {metrics}")
     batches, out = stacked(), {}
     prof = _profile(lambda: out.update(series=chunk(
-        state, batches, lrs, 10.0, gen, per_step=True)[1]))
+        state, batches, lrs, 10.0, gen, per_step=True)[1]), host=True)
     losses = out["series"]["loss"].tolist()
     if not np.isfinite(losses).all():
         raise AssertionError(f"non-finite train losses {losses}")
@@ -2116,10 +1905,8 @@ def _checked_path(sims, samples=None):
     ``_recording_backup``'s and their descent ``_recording_descent``'s.
     Yields the backup recorder's call counts, with the descent's checks
     under ``"descent"``."""
-    from alphazero_tpu_torch.ops import fused_backup as FB
     from alphazero_tpu_torch.search import mcts as M
-    build, build_rs, select = (M.build_search, M.build_reusing_search,
-                               M._select)
+    build, build_rs = M.build_search, M.build_reusing_search
 
     def counted(fn, n):
         def run(*a, **kw):
@@ -2133,17 +1920,14 @@ def _checked_path(sims, samples=None):
     def build_rs_counted(mcfg, *a, **kw):
         rs = build_rs(mcfg, *a, **kw)
         return rs._replace(run=counted(rs.run, mcfg.num_sims))
-    calls = {}
+    calls, hooks = {}, {}
     if samples is not None:
-        M.backprop_packed, calls = _recording_backup(samples)
+        hooks["backprop_packed"], calls = _recording_backup(samples)
         calls["descent"] = {}
-        M._select = _recording_descent(calls["descent"])
-    M.build_search, M.build_reusing_search = build_counted, build_rs_counted
-    try:
+        hooks["_select"] = _recording_descent(calls["descent"])
+    with _installed(M, build_search=build_counted,
+                    build_reusing_search=build_rs_counted, **hooks):
         yield calls
-    finally:
-        M.build_search, M.build_reusing_search = build, build_rs
-        M.backprop_packed, M._select = FB.backprop_packed, select
 
 
 def phase_coach(keep_dir):
@@ -2234,38 +2018,30 @@ def phase_coach(keep_dir):
     return rec
 
 
-def _reuse_moves(rs, net, roots, moves, record=None, on_reroot=None):
+def _reuse_moves(rs, net, roots, moves, on_reroot=None):
     """``moves`` moves of a reusing search from fresh trees at ``roots``:
-    run, argmax action, its in-tree next state, reroot.  ``record`` wraps
-    the search's backup; ``on_reroot(move, tree, actions, next_states)``
-    may time or check a reroot (it must not change the tree).  Returns the
-    per-move n_kept and run seconds."""
+    run, argmax action, its in-tree next state, reroot.  ``on_reroot(move,
+    tree, actions, next_states)`` may time or check a reroot (it must not
+    change the tree).  Returns the per-move n_kept and run seconds."""
     import torch
     from alphazero_tpu_torch.games.splendor import adapter as A
     from alphazero_tpu_torch.games.splendor import env as E
-    from alphazero_tpu_torch.ops import fused_backup as FB
-    from alphazero_tpu_torch.search import mcts as M
     step_fn = A.make_search_step_fn(E.SplendorConfig(num_players=2))
     g = torch.Generator(device="cuda").manual_seed(1)
     tree, n = rs.init_tree(roots)
     kept, run_s = [], []
-    if record is not None:
-        M.backprop_packed = record
-    try:
-        for move in range(moves):
-            _sync()
-            t0 = time.perf_counter()
-            res, tree, n = rs.run(net, tree, n, generator=g)
-            _sync()
-            run_s.append(time.perf_counter() - t0)
-            actions = torch.argmax(res.counts, -1)
-            nxt = step_fn(tree.states[:, 0], actions)[0]
-            if on_reroot is not None:
-                on_reroot(move, tree, actions, nxt)
-            tree, n = rs.reroot(tree, actions, nxt)
-            kept.append(n)
-    finally:
-        M.backprop_packed = FB.backprop_packed
+    for move in range(moves):
+        _sync()
+        t0 = time.perf_counter()
+        res, tree, n = rs.run(net, tree, n, generator=g)
+        _sync()
+        run_s.append(time.perf_counter() - t0)
+        actions = torch.argmax(res.counts, -1)
+        nxt = step_fn(tree.states[:, 0], actions)[0]
+        if on_reroot is not None:
+            on_reroot(move, tree, actions, nxt)
+        tree, n = rs.reroot(tree, actions, nxt)
+        kept.append(n)
     return torch.stack(kept), run_s
 
 
@@ -2326,13 +2102,11 @@ def phase_reuse():
                                                     (*cpu[0], cpu[1])))
         cpu_check["seconds"] = time.perf_counter() - t0
 
-    descents_checked, real_select = {}, M._select
-    M._select = _recording_descent(descents_checked)
+    descents_checked = {}
     _zero_launches()
-    try:
-        kept, _ = _reuse_moves(rs, net, roots, moves, record, on_reroot)
-    finally:
-        M._select = real_select
+    with _installed(M, backprop_packed=record,
+                    _select=_recording_descent(descents_checked)):
+        kept, _ = _reuse_moves(rs, net, roots, moves, on_reroot)
     _sync()
     # and one more transition per move: the next state the reroot keeps
     backups, descents, steps = _counts()
@@ -2375,7 +2149,7 @@ def phase_reuse():
         _sync()
         fresh_s.append(time.perf_counter() - t0)
         host_ms = _time_host_ms(lambda: rs.reroot(tree, actions, nxt), reps=3)
-        prof = _profile(lambda: rs.reroot(tree, actions, nxt))
+        prof = _profile(lambda: rs.reroot(tree, actions, nxt), host=True)
         reroots.append({"host_ms": host_ms,
                         "device_busy_ms": prof["device_busy_ms"],
                         "kernels": prof["kernel_launches"]})
@@ -2641,17 +2415,13 @@ def phase_tooling(examples, review_sims=1600):
             rec["analyze_turns"] = len(rows)
             # alpha-beta under --batched against r6: a pool of 2 CPU
             # workers (one board per wave here; the default is one per CPU)
-            pool_init = AB.AlphaBetaPool.__init__
-            AB.AlphaBetaPool.__init__ = functools.partialmethod(pool_init,
-                                                                workers=2)
-            try:
+            with _installed(AB.AlphaBetaPool, __init__=functools.partialmethod(
+                    AB.AlphaBetaPool.__init__, workers=2)):
                 t0 = time.perf_counter()
                 ab = PIT.main(["alphabeta", r6, "--batched", "-n", "2", "-m",
                                "8", "--ab-depth", "1", "--ab-deadline",
                                "0.5"])
                 rec["alphabeta_seconds"] = time.perf_counter() - t0
-            finally:
-                AB.AlphaBetaPool.__init__ = pool_init
             rec["alphabeta"] = ab
             if ab["games"] != 2:
                 raise AssertionError(f"alphabeta --batched: {ab}")
@@ -2838,8 +2608,6 @@ def _cli_iteration(argv):
     from alphazero_tpu_torch.cli import main as CLI
     from alphazero_tpu_torch.train import coach as CO
     samples, sims, stage = {}, [0], {}
-    saved = {n: getattr(CO.Coach, n)
-             for n in ("self_play_iteration", "train_iteration", "gate")}
 
     def timed(name, fn):
         def run(*a, **kw):
@@ -2850,22 +2618,19 @@ def _cli_iteration(argv):
             stage[name] = time.perf_counter() - t0
             return out
         return run
-    for n, f in saved.items():
-        setattr(CO.Coach, n, timed(n, f))
-    try:
-        with tempfile.TemporaryDirectory() as tmp, \
-                _checked_path(sims, samples) as calls:
-            _zero_launches()
-            t0 = time.perf_counter()
-            CLI.main(argv + ["-C", tmp])
-            _sync()
-            seconds = time.perf_counter() - t0
-            launches, descents, steps = _counts()
-            with open(os.path.join(tmp, "metrics.jsonl")) as f:
-                record = json.loads(f.readline())
-    finally:
-        for n, f in saved.items():
-            setattr(CO.Coach, n, f)
+    stages = {n: timed(n, getattr(CO.Coach, n))
+              for n in ("self_play_iteration", "train_iteration", "gate")}
+    with _installed(CO.Coach, **stages), \
+            tempfile.TemporaryDirectory() as tmp, \
+            _checked_path(sims, samples) as calls:
+        _zero_launches()
+        t0 = time.perf_counter()
+        CLI.main(argv + ["-C", tmp])
+        _sync()
+        seconds = time.perf_counter() - t0
+        launches, descents, steps = _counts()
+        with open(os.path.join(tmp, "metrics.jsonl")) as f:
+            record = json.loads(f.readline())
     _check_launches(" ".join(argv), sims[0], launches, descents, steps)
     err, _ = _check_recorded(samples, calls, "the CLI iteration")
     return {"seconds": seconds, "stage_seconds": stage, "launches": launches,
@@ -3197,48 +2962,6 @@ def _check_graphed(net, states, valids, g, batches, what):
     return calls
 
 
-def _device_kernels(fn, pads=16, tries=8):
-    """Kernels (not copies or memsets) the profiler saw in one call of
-    ``fn``.  The profiler may lose a window's first records (see
-    ``_device_ms``), so each window opens with ``pads`` spin kernels; a
-    window that kept all of them counts, and the count is the most of two
-    such windows (of ``tries`` at most)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    kept = []
-    for _ in range(tries):
-        _sync()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(pads):
-                torch.cuda._sleep(100)
-            fn()
-            _sync()
-        names = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA
-                 and not e.name.startswith(("Memcpy", "Memset"))]
-        spins = sum("spin_kernel" in n for n in names)
-        if spins == pads:
-            kept.append(len(names) - spins)
-            if len(kept) == 2:
-                return max(kept)
-    raise AssertionError(f"the profiler kept every pad kernel in "
-                         f"{len(kept)} of {tries} windows")
-
-
-def _host_us(fn, calls=200):
-    """Host µs per call of ``fn`` in a loop of ``calls``, synchronized at
-    the end only (what a search's loop pays)."""
-    for _ in range(3):
-        fn()
-    _sync()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    _sync()
-    return (time.perf_counter() - t0) * 1e6 / calls
-
-
 def _recorded_results(search, log):
     def run(params, roots, generator=None, noise_gamma=None):
         res = search(params, roots, generator=generator,
@@ -3267,8 +2990,7 @@ def phase_graphs():
     4-player net, after an in-place Adam step, and with two nets in turns;
     a search's root values unchanged by later replays; self-play plies and
     B=1 searches equal to searches over an eager evaluator; the replay's
-    kernels equal to the eager forward's in a trace; host µs per
-    evaluation, eager and graphed."""
+    kernels equal to the eager forward's in a trace."""
     import dataclasses
     import numpy as np
     import torch
@@ -3381,7 +3103,7 @@ def phase_graphs():
 
     # the replay runs the eager forward's kernels; the evaluator adds
     # the copies in and out
-    kernels, host_us = {}, {}
+    kernels = {}
     graphed_fn = A.make_eval_fn(r6.cfg)
     for B in (1, 77, 179, 256):
         b, m = _pick(s2, v2, B, g)
@@ -3389,24 +3111,20 @@ def phase_graphs():
             graphed_fn(r6, b, m)
         graph = _graph_at(r6, B)
         x = b.to(torch.float32)
-        eager = _device_kernels(lambda: N._forward(r6, x, m))
-        replay = _device_kernels(graph.graph.replay)
-        whole = _device_kernels(lambda: graphed_fn(r6, b, m))
+        eager = _profile(lambda: N._forward(r6, x, m))["kernels"]
+        replay = _profile(graph.graph.replay)["kernels"]
+        whole = _profile(lambda: graphed_fn(r6, b, m))["kernels"]
         if replay != eager or replay == 0:
             raise AssertionError(f"B={B}: the traced replay ran {replay} "
                                  f"kernels, the eager forward {eager}")
         kernels[B] = {"eager_forward": eager, "replay": replay,
                       "graphed_evaluation": whole,
-                      "eager_evaluation": _device_kernels(
-                          lambda: _eager_eval_fn(r6, b, m))}
-        host_us[B] = {
-            "eager": _host_us(lambda: _eager_eval_fn(r6, b, m)),
-            "graphed": _host_us(lambda: graphed_fn(r6, b, m))}
-    out.update(kernels=kernels, host_us_per_evaluation=host_us,
-               seconds=time.perf_counter() - t0)
+                      "eager_evaluation": _profile(
+                          lambda: _eager_eval_fn(r6, b, m))["kernels"]}
+    out.update(kernels=kernels, seconds=time.perf_counter() - t0)
     print(f"graphs: {out['checked_calls']} evaluations bit-equal to "
-          f"apply_inference; kernels {kernels}; host µs per evaluation "
-          f"{host_us}; {out['seconds']:.0f} s", flush=True)
+          f"apply_inference; kernels {kernels}; {out['seconds']:.0f} s",
+          flush=True)
     return out
 
 
@@ -3435,35 +3153,6 @@ def _bt4_net():
     return net
 
 
-@contextlib.contextmanager
-def _two_roundings():
-    """Version 3's Dense under the rule of versions 0-2 (``_dense``: the
-    product rounded to bf16, then the bias added by a broadcast add), the
-    rule the BT4 trunk ran before it had one of its own."""
-    from alphazero_tpu_torch.models import splendor_net as N
-    once = N._dense_once
-    N._dense_once = N._dense
-    try:
-        yield
-    finally:
-        N._dense_once = once
-
-
-def _op_kernels(fn):
-    """``(op, input shapes, [(kernel, µs), ...])`` for each op of one call
-    of ``fn`` that launched kernels itself (a profile with the ops' input
-    shapes; a kernel belongs to the innermost op that launched it)."""
-    from torch.profiler import ProfilerActivity, profile
-    _sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        fn()
-        _sync()
-    return [(e.name, e.input_shapes,
-             [(k.name, k.duration) for k in e.kernels])
-            for e in prof.events() if e.kernels]
-
-
 def _trunk_addmm(shapes, B):
     """Whether an ``aten::addmm`` of these input shapes is a biased Dense of
     the BT4 trunk at batch ``B`` (per token: M = 56 B; smolgen's per-board
@@ -3478,9 +3167,8 @@ def _kinds(rows):
     """Device µs of one evaluation by kind: the bias adds (an ``aten::add``
     with a 1-D operand), the attention output's transpose copy (a 4-D
     ``aten::copy_``), the other copies and casts, GEMMs (under ``mm``,
-    ``addmm``, ``bmm``), attention, layer norms, the rest; and the
-    non-vectorized ``elementwise_kernel<128, 4, ...>`` by op and shapes."""
-    kinds, slow = {}, {}
+    ``addmm``, ``bmm``), attention, layer norms, the rest."""
+    kinds = {}
     for op, shapes, kernel, us in ((o, sh, k, us) for o, sh, ks in rows
                                    for k, us in ks):
         if op == "aten::add" and len(shapes) > 1 and len(shapes[1]) == 1:
@@ -3498,32 +3186,7 @@ def _kinds(rows):
         else:
             kind = "other"
         kinds[kind] = kinds.get(kind, 0.0) + us
-        if "elementwise_kernel<128, 4" in kernel:
-            key = f"{op} {shapes}"
-            slow[key] = slow.get(key, 0.0) + us
-    return ({k: round(v, 1) for k, v in sorted(kinds.items())},
-            {k: round(v, 1) for k, v in sorted(slow.items(),
-                                               key=lambda kv: -kv[1])})
-
-
-def _replay_ms(graphs, reps=20, rounds=3):
-    """Device ms per replay of each graph of ``graphs`` (name -> graph),
-    timed with CUDA events over ``reps`` replays, the graphs in turns for
-    ``rounds`` rounds; the median of the rounds."""
-    import torch
-    times = {name: [] for name in graphs}
-    for _ in range(rounds):
-        for name, graph in graphs.items():
-            graph.replay()
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-            for _ in range(reps):
-                graph.replay()
-            end.record()
-            end.synchronize()
-            times[name].append(start.elapsed_time(end) / reps)
-    return {name: statistics.median(t) for name, t in times.items()}
+    return {k: round(v, 1) for k, v in sorted(kinds.items())}
 
 
 def phase_bt4_dense(check=True):
@@ -3531,40 +3194,27 @@ def phase_bt4_dense(check=True):
     biased Dense of the trunk one GEMM with the bias in its epilogue.  For
     the cell's net (``_bt4_net``) at each of ``BT4_BATCHES``: the graphed
     evaluator bit for bit against ``apply_inference`` (``_check_graphed``),
-    the replay's kernels equal to the eager forward's; each trunk
-    ``aten::addmm`` and the kernels it launched (one GEMM where the bias
-    fused, cuBLASLt's memset of its workspace aside; the shapes where more
-    ran); kernels per evaluation under this
-    rule and under the two-rounding rule (``_two_roundings``), whose
-    difference is the Denses that fused; no bias add on its own; device
-    time by kind under both rules and each graph's replay in turns.  With
-    ``check`` it raises, after printing, where a check failed."""
-    import copy
+    the replay's kernels equal to the eager forward's; ``1 + 6 * layers``
+    trunk ``aten::addmm``, each launching one GEMM (cuBLASLt's memset of
+    its workspace aside; the shapes where more ran); no bias add on its
+    own; kernels per evaluation and device time by kind.  With ``check``
+    it raises, after printing, where a check failed."""
     import torch
-    from alphazero_tpu_torch.games.splendor import adapter as A
     from alphazero_tpu_torch.models import splendor_net as N
     t0 = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(18)
     s2, v2 = _graph_inputs(2, g)
     net = _bt4_net()
-    old = copy.deepcopy(net)
-    eval_fn = A.make_eval_fn(net.cfg)
     failed = []
     checked = _check_graphed(net, s2, v2, g, BT4_BATCHES, "BT4")
     out = {"checked_calls": checked, "batches": {}}
     for B in BT4_BATCHES:
         b, m = _pick(s2, v2, B, g)
         x = b.to(torch.float32)
-        with _two_roundings():
-            for _ in range(2):              # eager, then captured
-                eval_fn(old, b, m)
-            two = N.apply_inference(old, x, m)
-            k_two = _device_kernels(lambda: N._forward(old, x, m))
-            rows_two = _op_kernels(lambda: N._forward(old, x, m))
-        once = N.apply_inference(net, x, m)
-        k_once = _device_kernels(lambda: N._forward(net, x, m))
-        k_replay = _device_kernels(_graph_at(net, B).graph.replay)
-        rows = _op_kernels(lambda: N._forward(net, x, m))
+        k_replay = _profile(_graph_at(net, B).graph.replay)["kernels"]
+        eager = _profile(lambda: N._forward(net, x, m), host=True,
+                         shapes=True)
+        k_once, rows = eager["kernels"], eager["ops"]
         dense, extra, memset = 0, {}, []
         for op, shapes, kernels in rows:
             if op == "aten::addmm" and _trunk_addmm(shapes, B):
@@ -3576,41 +3226,25 @@ def phase_bt4_dense(check=True):
                     extra[str(shapes)] = names
                 elif len(names) > 1:
                     memset.append(f"{shapes[1]} x {shapes[2]}")
-        fused = dense - len(extra)
         adds = sum(1 for op, sh, _ in rows
                    if op == "aten::add" and len(sh) > 1 and len(sh[1]) == 1)
-        ms = _replay_ms({"once": _graph_at(net, B).graph,
-                         "two roundings": _graph_at(old, B).graph})
-        gap = [float((once[i].float() - two[i].float()).abs().max())
-               for i in range(2)]
-        kinds, slow = _kinds(rows)
-        kinds_two, slow_two = _kinds(rows_two)
+        kinds = _kinds(rows)
         out["batches"][B] = {
-            "kernels_once": k_once, "kernels_two_roundings": k_two,
-            "kernels_replay": k_replay, "trunk_addmm": dense, "fused": fused,
+            "kernels_once": k_once, "kernels_replay": k_replay,
+            "trunk_addmm": dense, "fused": dense - len(extra),
             "not_fused": extra, "gemm_after_memset": memset,
-            "bias_adds": adds, "replay_ms": ms,
-            "kinds_us_once": kinds, "kinds_us_two_roundings": kinds_two,
-            "slow_elementwise_us_once": slow,
-            "slow_elementwise_us_two_roundings": slow_two,
-            "probs_v_gap_to_two_roundings": gap}
-        print(f"bt4 dense B={B}: {fused} of {dense} trunk addmm one kernel "
-              f"(not fused: {extra}; a memset before the GEMM: {memset}); "
-              f"kernels per evaluation {k_once}, "
-              f"two roundings {k_two} (-{k_two - k_once}), replay "
-              f"{k_replay}; bias adds {adds}; replay ms {ms}; device µs by "
-              f"kind {kinds}, two roundings {kinds_two}; "
-              f"elementwise_kernel<128, 4, ...> µs two roundings {slow_two}, "
-              f"once {slow}; |once - two roundings| probs, v {gap}",
+            "bias_adds": adds, "kinds_us_once": kinds}
+        print(f"bt4 dense B={B}: {dense - len(extra)} of {dense} trunk addmm "
+              f"one kernel (not fused: {extra}; a memset before the GEMM: "
+              f"{memset}); kernels per evaluation {k_once}, replay "
+              f"{k_replay}; bias adds {adds}; device µs by kind {kinds}",
               flush=True)
         if k_replay != k_once:
             failed.append(f"B={B}: replay ran {k_replay} kernels, the eager "
                           f"forward {k_once}")
-        if dense != 1 + 6 * net.cfg.layers or adds:
-            failed.append(f"B={B}: {dense} trunk addmm, {adds} bias adds")
-        if k_two - k_once != fused or not fused:
-            failed.append(f"B={B}: kernels fell by {k_two - k_once}, "
-                          f"{fused} Denses fused")
+        if dense != 1 + 6 * net.cfg.layers or adds or extra:
+            failed.append(f"B={B}: {dense} trunk addmm ({len(extra)} not one "
+                          f"GEMM), {adds} bias adds")
     out["seconds"] = time.perf_counter() - t0
     print(f"bt4 dense phase {out['seconds']:.0f} s", flush=True)
     if check and failed:
@@ -3659,8 +3293,8 @@ def main(argv=None) -> int:
     tooling = phase_tooling(examples)
     total_s = time.perf_counter() - t0
     print(f"kernel phase {t_kernels:.0f} s of {total_s:.0f} s", flush=True)
-    print(f"profiled calls that kept under 0.9 of a kernel's records in 8 "
-          f"tries (name, units, records kept): {PROFILER_SHORT}", flush=True)
+    print(f"profiled calls that kept too few records in 8 windows: "
+          f"{PROFILER_SHORT}", flush=True)
 
     kb = kernels["fused_backup"]
     line = {"kernels": [{
